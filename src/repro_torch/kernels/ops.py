@@ -1,0 +1,466 @@
+"""Device dispatch for the main path's kernels, with numpy-friendly padding.
+
+Every op takes a ``device`` and defaults to the card:
+  * ``cuda`` — mirrors the JAX package's Pallas branch: every non-empty
+               call pads as that branch does and launches the hand-written
+               CUDA kernel (``kernels/csrc``), with no host shortcut;
+  * ``cpu``  — mirrors the JAX package's default backend: host numpy below
+               ``HOST_FLOP_CUTOFF`` (bitwise the same arithmetic) and the
+               plain PyTorch version (``ref.py``) above it.
+With no card and no ``device="cpu"`` the ops raise; they never carry on
+quietly on the CPU.  Dispatch accounting (launches, bytes handed back to
+the host, shape-cache misses) is charged exactly as the JAX package
+charges it, so ``ExecStats`` compare one to one.
+
+The host-side engine calls these for all per-segment compute: distance
+scans, predicate bitmaps, the fused scan -> top-k.
+"""
+from __future__ import annotations
+
+import dataclasses
+import threading
+from typing import Tuple, Union
+
+import numpy as np
+import torch
+
+from repro_torch.kernels import bitmap_filter as bf_kernel
+from repro_torch.kernels import fused_scan as fs_kernel
+from repro_torch.kernels import ivf_scan as ivf_kernel
+from repro_torch.kernels import ref
+from repro_torch.obs import REGISTRY
+
+Device = Union[str, torch.device]
+
+
+def resolve_device(device: Device = "cuda") -> torch.device:
+    """The ``torch.device`` an entry point runs on.  Raises when the card
+    is asked for (the default) and none is present."""
+    dev = torch.device(device)
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {dev}")
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device is available; pass device='cpu' "
+                           "to run on the host")
+    return dev
+
+
+# ---------------------------------------------------------------------------
+# dispatch accounting
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class KernelStats:
+    """Per-THREAD dispatch counters (monotonic; consumers diff
+    ``stats_snapshot()`` values around a region of interest).  Thread-
+    local so a background flush/compaction worker's index-build kernel
+    dispatches are never attributed to the query thread it races.
+
+    launches       — op dispatches.  The host numpy fast path under
+                     ``HOST_FLOP_CUTOFF`` counts too: at production scale
+                     the cutoff vanishes and every dispatch is a device
+                     launch, so ratios stay machine-independent.
+    bytes_to_host  — bytes of results handed back to the host engine
+                     (device->host traffic when a device backend is
+                     active).  Operand upload is not counted.
+    shape_misses   — first sighting of a (op, bucketed shape) pair, i.e.
+                     compile-cache misses caused by ``_bucket``-padded
+                     ragged inputs in the JAX package (the shape-cache
+                     itself is process-wide).
+    """
+    launches: int = 0
+    bytes_to_host: int = 0
+    shape_misses: int = 0
+    # high-water marks already published to the metrics registry; the
+    # per-dispatch mirror batches (see flush_registry_counters) so the
+    # hot path pays an int compare instead of a Counter lock
+    reg_launches: int = 0
+    reg_bytes: int = 0
+    reg_misses: int = 0
+
+
+_tls = threading.local()
+_seen_shapes: set = set()
+# the shape cache is process-global while the counters are per-thread;
+# guard membership+insert so concurrent first-seens from a query thread
+# and the flush worker don't corrupt the set
+_seen_lock = threading.Lock()
+
+
+def thread_stats() -> KernelStats:
+    """The calling thread's dispatch counters."""
+    stats = getattr(_tls, "stats", None)
+    if stats is None:
+        stats = _tls.stats = KernelStats()
+    return stats
+
+
+def stats_snapshot() -> Tuple[int, int, int]:
+    s = thread_stats()
+    return (s.launches, s.bytes_to_host, s.shape_misses)
+
+
+_reg_counters = None
+_reg_generation = -1
+
+
+def _registry_counters():
+    """Process-wide mirrors of the per-thread counters in the metrics
+    registry.  Object refs are cached (re-fetched only when
+    ``REGISTRY.reset()`` bumps its generation), so the per-dispatch
+    cost is an int compare plus three ``Counter.inc`` calls."""
+    global _reg_counters, _reg_generation
+    if _reg_counters is None or _reg_generation != REGISTRY.generation:
+        _reg_generation = REGISTRY.generation
+        _reg_counters = (REGISTRY.counter("kernels.launches"),
+                         REGISTRY.counter("kernels.bytes_to_host"),
+                         REGISTRY.counter("kernels.jit_shape_misses"))
+    return _reg_counters
+
+
+REG_FLUSH_EVERY = 64    # dispatches between registry-mirror flushes
+
+
+def flush_registry_counters() -> None:
+    """Publish the calling thread's pending dispatch deltas to the
+    metrics registry.  Runs every ``REG_FLUSH_EVERY`` dispatches and at
+    query-batch boundaries (``Executor._observe_query``), keeping the
+    registry's Counter lock off the per-dispatch path."""
+    s = thread_stats()
+    launches, byts, misses = _registry_counters()
+    if s.launches != s.reg_launches:
+        launches.inc(s.launches - s.reg_launches)
+        s.reg_launches = s.launches
+    if s.bytes_to_host != s.reg_bytes:
+        byts.inc(s.bytes_to_host - s.reg_bytes)
+        s.reg_bytes = s.bytes_to_host
+    if s.shape_misses != s.reg_misses:
+        misses.inc(s.shape_misses - s.reg_misses)
+        s.reg_misses = s.shape_misses
+
+
+def _dispatched(out_bytes: int, tag: str = None, shape: Tuple = ()) -> None:
+    """Record one op dispatch; with a ``tag`` also track the shape cache
+    (host-path calls pass no tag — numpy has no shape cache)."""
+    s = thread_stats()
+    s.launches += 1
+    s.bytes_to_host += int(out_bytes)
+    if s.launches - s.reg_launches >= REG_FLUSH_EVERY:
+        flush_registry_counters()
+    if tag is not None:
+        key = (tag,) + tuple(shape)
+        with _seen_lock:
+            fresh = key not in _seen_shapes
+            if fresh:
+                _seen_shapes.add(key)
+        if fresh:
+            s.shape_misses += 1
+
+
+def _pad_to(x: np.ndarray, mult: int, axis: int, value=0.0) -> np.ndarray:
+    n = x.shape[axis]
+    pad = (-n) % mult
+    if pad == 0:
+        return x
+    widths = [(0, 0)] * x.ndim
+    widths[axis] = (0, pad)
+    return np.pad(x, widths, constant_values=value)
+
+
+def _bucket(n: int, floor: int = 128) -> int:
+    """Round up to the next power-of-two bucket (>= floor): bounds the
+    number of distinct shapes from ragged posting lists to O(log n)."""
+    b = floor
+    while b < n:
+        b *= 2
+    return b
+
+
+def _pad_bucket(x: np.ndarray, axis: int, value=0.0,
+                floor: int = 128) -> np.ndarray:
+    n = x.shape[axis]
+    b = _bucket(n, floor)
+    if b == n:
+        return x
+    widths = [(0, 0)] * x.ndim
+    widths[axis] = (0, b - n)
+    return np.pad(x, widths, constant_values=value)
+
+
+def _on(a: np.ndarray, dev: torch.device) -> torch.Tensor:
+    """Upload a host array (a CPU device shares its memory)."""
+    return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+
+def _host(t: torch.Tensor) -> np.ndarray:
+    return t.cpu().numpy()
+
+
+# ---------------------------------------------------------------------------
+# distance scans
+# ---------------------------------------------------------------------------
+
+# Below this many MACs the JAX package's default backend runs the op on the
+# host; the CPU device keeps that rule (it fixes the rounding the bitwise
+# fused-vs-staged contracts rest on).  The card has no such shortcut.
+HOST_FLOP_CUTOFF = 4_000_000
+
+
+def _l2_host(q: np.ndarray, x: np.ndarray) -> np.ndarray:
+    """Host numpy squared-L2 with BATCH-SHAPE-INDEPENDENT rounding.
+
+    The difference form ``((x - q)**2).sum(-1)`` computes every output
+    element from exactly its own (q_i, x_j) pair — numpy pairwise-sums
+    the d axis per element — so a row's distance is bitwise identical
+    whatever it is batched with.  The BLAS-backed ``qn - 2 q@x.T + xn``
+    expansion does NOT have this property: gemm picks differently-rounded
+    micro-kernels by operand shape and row position, so the same row
+    scored in two batch layouts could differ by ~1 ulp.  That invariant is
+    what makes fused-vs-staged, NRA-refinement-vs-scan results bitwise
+    comparable — and the difference form also never goes negative (no
+    cancellation).  Only used below HOST_FLOP_CUTOFF, so the (nq, n, d)
+    temporary is bounded at ~16 MB."""
+    diff = x[None, :, :] - q[:, None, :]
+    return (diff * diff).sum(axis=-1)
+
+
+def l2_distances(q: np.ndarray, x: np.ndarray,
+                 device: Device = "cuda") -> np.ndarray:
+    """Squared L2: q (nq, d), x (n, d) -> (nq, n) fp32."""
+    dev = resolve_device(device)
+    q = np.asarray(q, np.float32)
+    x = np.asarray(x, np.float32)
+    if len(x) == 0:
+        return np.zeros((len(q), 0), np.float32)
+    if dev.type == "cuda":
+        return _l2_kernel(q, x, dev)
+    if q.shape[0] * x.shape[0] * x.shape[1] < HOST_FLOP_CUTOFF:
+        out = _l2_host(q, x)
+        _dispatched(out.nbytes)
+        return out
+    qp = _pad_bucket(q, 0, floor=8)
+    xp = _pad_bucket(x, 0)
+    out = ref.ivf_scan_ref(torch.from_numpy(qp), torch.from_numpy(xp)).numpy()
+    _dispatched(out.nbytes, "ivf_scan.ref", qp.shape + xp.shape)
+    return out[:len(q), :len(x)]
+
+
+def _l2_kernel(q: np.ndarray, x: np.ndarray, dev: torch.device
+               ) -> np.ndarray:
+    """The card's path (the JAX package's Pallas branch): pad queries to
+    BLOCK_Q rows and x to a bucketed BLOCK_N multiple with 1e30 rows, one
+    kernel launch.  On a CPU ``dev`` the wrapper takes its plain version,
+    which is how the CPU tests reach this host-side logic."""
+    qp = _pad_to(q, ivf_kernel.BLOCK_Q, 0)
+    xp = _pad_bucket(_pad_to(x, ivf_kernel.BLOCK_N, 0, value=1e30),
+                     0, value=1e30, floor=ivf_kernel.BLOCK_N)
+    out = _host(ivf_kernel.ivf_scan(_on(qp, dev), _on(xp, dev)))
+    _dispatched(out.nbytes, "ivf_scan.cuda", qp.shape + xp.shape)
+    return out[:len(q), :len(x)]
+
+
+def assign_nearest(x: np.ndarray, centroids: np.ndarray,
+                   chunk: int = 16384, device: Device = "cuda") -> np.ndarray:
+    """argmin over centroids per row (chunked for memory)."""
+    out = np.empty(len(x), np.int64)
+    for i in range(0, len(x), chunk):
+        d = l2_distances(x[i:i + chunk], centroids, device=device)
+        out[i:i + chunk] = np.argmin(d, axis=1)
+    return out
+
+
+def block_topk(q: np.ndarray, vecs: np.ndarray, k: int,
+               device: Device = "cuda") -> Tuple[np.ndarray, np.ndarray]:
+    """Top-k nearest of q among vecs -> (dists sorted, indices)."""
+    d = l2_distances(q[None, :], vecs, device=device)[0]
+    k = min(k, len(d))
+    idx = np.argpartition(d, k - 1)[:k]
+    # (score, row) comparator: ties break by row index, deterministic
+    # regardless of argpartition's arbitrary intra-tie order
+    order = np.lexsort((idx, d[idx]))
+    return d[idx][order], idx[order]
+
+
+# ---------------------------------------------------------------------------
+# predicate bitmaps
+# ---------------------------------------------------------------------------
+
+def range_bitmap(cols: np.ndarray, bounds: np.ndarray,
+                 device: Device = "cuda") -> np.ndarray:
+    """cols (n, c) fp32; bounds (c, 2) -> (n,) bool (AND of range preds)."""
+    dev = resolve_device(device)
+    cols = np.asarray(cols, np.float32)
+    bounds = np.asarray(bounds, np.float32)
+    if len(cols) == 0:
+        return np.zeros((0,), bool)
+    if dev.type == "cuda":
+        return _bitmap_kernel(cols, bounds, dev)
+    if cols.size < HOST_FLOP_CUTOFF:
+        out = np.all((cols >= bounds[:, 0][None])
+                     & (cols <= bounds[:, 1][None]), axis=1)
+        _dispatched(out.nbytes)
+        return out
+    cp = _pad_bucket(cols, 0, value=np.inf)
+    out = ref.bitmap_filter_ref(torch.from_numpy(cp),
+                                torch.from_numpy(bounds)).numpy()
+    _dispatched(out.nbytes, "bitmap.ref", cp.shape)
+    return out[:len(cols)]
+
+
+def _bitmap_kernel(cols: np.ndarray, bounds: np.ndarray, dev: torch.device
+                   ) -> np.ndarray:
+    """The card's path: pad rows to a bucketed BLOCK_N multiple with +inf,
+    one kernel launch (the plain version on a CPU ``dev``)."""
+    cp = _pad_bucket(_pad_to(cols, bf_kernel.BLOCK_N, 0, value=np.inf),
+                     0, value=np.inf, floor=bf_kernel.BLOCK_N)
+    out = _host(bf_kernel.bitmap_filter(_on(cp, dev), _on(bounds, dev)))
+    _dispatched(out.nbytes, "bitmap.cuda", cp.shape)
+    return out[:len(cols)].astype(bool)
+
+
+def rect_filter(points: np.ndarray, rect,
+                device: Device = "cuda") -> np.ndarray:
+    """points (n, 2); rect (xmin, ymin, xmax, ymax) -> (n,) bool."""
+    r = np.asarray(rect, np.float32)
+    bounds = np.stack([[r[0], r[2]], [r[1], r[3]]])       # (2, 2)
+    return range_bitmap(np.asarray(points, np.float32), bounds,
+                        device=device)
+
+
+# ---------------------------------------------------------------------------
+# fused masked scan -> top-k (packed cross-segment path)
+# ---------------------------------------------------------------------------
+
+def _as_packed(x, pks, n: int, dev: torch.device
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The packed column as device tensors with rows padded to a BLOCK_N
+    multiple (zero rows, SENTINEL pks).  ``core.segment.pack_segments``
+    already holds them so on the store's device; host arrays (tests) are
+    uploaded here."""
+    if isinstance(x, torch.Tensor) and isinstance(pks, torch.Tensor):
+        return x.to(dev), pks.to(dev)
+    rows = -(-n // fs_kernel.BLOCK_N) * fs_kernel.BLOCK_N
+    xp = np.zeros((rows, np.shape(x)[1]), np.float32)
+    xp[:n] = np.asarray(x, np.float32)[:n]
+    pkp = np.full(rows, int(fs_kernel.SENTINEL), np.int64)
+    pkp[:n] = np.asarray(pks, np.int64)[:n]
+    return _on(xp, dev), _on(pkp.astype(np.int32), dev)
+
+
+def _as_host(a) -> np.ndarray:
+    return a.cpu().numpy() if isinstance(a, torch.Tensor) else np.asarray(a)
+
+
+def fused_scan_topk(q: np.ndarray, x, mask: np.ndarray, pks, k: int,
+                    device: Device = "cuda"
+                    ) -> Tuple[np.ndarray, np.ndarray]:
+    """Fused filter-aware scan -> per-query top-k over a packed matrix.
+
+    q (nq, d) queries; x (>= n, d) packed vectors (all visible segments
+    concatenated; rows past n are padding); mask (nq, n) bool predicate
+    bitmap; pks (>= n,) primary keys (< 2^31: the device tie-break key).
+    ``x`` and ``pks`` may be host arrays or the tensors ``pack_segments``
+    keeps on the store's device.  Returns (d2 (nq, k) fp32 squared-L2
+    ascending, rows (nq, k) int64 row indices into ``x``; -1 marks slots
+    beyond the query's candidate count).  Ties break by (distance, pk) —
+    the host merge's lexsort comparator.
+
+    On the CPU this SIMULATES the fused kernel as the JAX package's default
+    backend does: the staged path's distance arithmetic at this size
+    (numpy below ``HOST_FLOP_CUTOFF``, the plain PyTorch scan above) and
+    the host merge's (sqrt-distance, pk) comparator exactly, so fused and
+    staged results are bitwise equal.  On the card the kernel compares
+    squared distances (a monotone transform — same rows except where f32
+    sqrt rounds two distinct squared distances together).
+
+    ONE dispatch for the whole batch, whatever the segment or predicate
+    count.  Host-side prep on the card: rows are tiled into BLOCK_N
+    blocks; the ids of blocks some query admits go to the kernel, which
+    reads the device-resident column through them (no compacted copy of
+    ``x``), with a per-(query-tile, kept block) occupancy grid so it skips
+    tiles that are empty for a query tile.
+    """
+    dev = resolve_device(device)
+    q = np.asarray(q, np.float32)
+    mask = np.ascontiguousarray(mask, bool)
+    nq, n = mask.shape
+    k = int(min(k, fs_kernel.KMAX))
+    empty = (np.full((nq, k), np.inf, np.float32),
+             np.full((nq, k), -1, np.int64))
+    if n == 0 or k == 0 or not mask.any():
+        return empty
+    if dev.type == "cpu":
+        # simulated fused kernel: ONE counted dispatch, with the exact
+        # arithmetic the staged path uses at this size and the host
+        # merge's (score, pk) comparator
+        xh = np.asarray(_as_host(x)[:n], np.float32)
+        if q.shape[0] * n * xh.shape[1] < HOST_FLOP_CUTOFF:
+            d2 = _l2_host(q, xh)
+            shape_tag = None
+        else:
+            qp = _pad_bucket(q, 0, floor=8)
+            xp = _pad_bucket(xh, 0)
+            d2 = ref.ivf_scan_ref(torch.from_numpy(qp), torch.from_numpy(xp)
+                                  ).numpy()[:nq, :n]
+            shape_tag = qp.shape + xp.shape
+        s = np.where(mask, np.sqrt(np.maximum(d2, 0),
+                                   dtype=np.float32), np.inf)
+        pks64 = np.asarray(_as_host(pks)[:n], np.int64)
+        out_d = np.full((nq, k), np.inf, np.float32)
+        out_r = np.full((nq, k), -1, np.int64)
+        for qi in range(nq):
+            order = np.lexsort((pks64, s[qi]))[:k]
+            order = order[np.isfinite(s[qi][order])]
+            out_d[qi, :len(order)] = d2[qi][order]
+            out_r[qi, :len(order)] = order
+        _dispatched(out_d.nbytes + out_r.nbytes,
+                    None if shape_tag is None else "fused_scan.ref",
+                    shape_tag or ())
+        return out_d, out_r
+    return _fused_kernel(q, x, mask, pks, k, dev)
+
+
+def fused_kernel_args(q: np.ndarray, x, mask: np.ndarray, pks,
+                      dev: torch.device):
+    """The packed kernel's inputs on ``dev`` for one batch, and the kept
+    block ids on the host: queries padded to BLOCK_Q tiles, the bitmap
+    (rows padded with zeros), the packed column and pks, the ids of the
+    blocks some query admits, and the per-(query tile, kept block)
+    occupancy grid."""
+    nq, n = mask.shape
+    BQ, BN = fs_kernel.BLOCK_Q, fs_kernel.BLOCK_N
+    xt, pkt = _as_packed(x, pks, n, dev)
+    blk = np.logical_or.reduceat(mask, np.arange(0, n, BN), axis=1)
+    keep = np.nonzero(blk.any(axis=0))[0]
+    nq_p = -(-nq // BQ) * BQ
+    occ = _pad_to(blk[:, keep], BQ, 0, value=False) \
+        .reshape(nq_p // BQ, BQ, len(keep)).any(axis=1).astype(np.int32)
+    mt = torch.zeros((nq_p, n), dtype=torch.uint8, device=dev)
+    mt[:nq] = _on(mask.view(np.uint8), dev)
+    return (_on(_pad_to(q, BQ, 0), dev), xt, mt, pkt,
+            _on(keep.astype(np.int32), dev), _on(occ, dev)), keep
+
+
+def _fused_kernel(q: np.ndarray, x, mask: np.ndarray, pks, k: int,
+                  dev: torch.device) -> Tuple[np.ndarray, np.ndarray]:
+    """The card's path (the JAX package's Pallas branch, without its host
+    compaction): kept block ids + occupancy grid + the bitmap go up, one
+    kernel launch reads the device-resident column through the ids, and
+    (nq, KMAX) results come back (the plain version on a CPU ``dev``)."""
+    nq = len(mask)
+    BN = fs_kernel.BLOCK_N
+    args, keep = fused_kernel_args(q, x, mask, pks, dev)
+    d2, _, idx = fs_kernel.fused_scan_topk(*args)
+    d2, idx = _host(d2), _host(idx)
+    # the JAX package's Pallas branch compacts kept blocks into a
+    # power-of-two bucket: its shape key is kept so the cache accounting
+    # matches
+    nb_pad = _bucket(len(keep), floor=1)
+    _dispatched(d2.nbytes + 2 * idx.nbytes, "fused_scan.cuda",
+                tuple(args[0].shape) + (nb_pad * BN, args[1].shape[1]))
+    d2, idx = d2[:nq, :k], idx[:nq, :k]
+    # map kept-block row ids back to rows of the caller's x
+    safe = np.minimum(idx, len(keep) * BN - 1)
+    rows = keep[safe // BN] * BN + safe % BN
+    rows = np.where(idx == int(fs_kernel.SENTINEL), -1, rows)
+    return d2, rows.astype(np.int64)

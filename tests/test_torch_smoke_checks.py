@@ -1,0 +1,148 @@
+"""The answer checks of ``chip_smoke.py`` on the CPU: an answer ranked by
+fp32 distances passes them, and a wrong answer fails them.
+
+The smoke holds every NN answer on the card against a float64 brute force
+at the fp32 rounding bound of the distance expansion (``round_bound``).
+These tests show that the bound admits every answer that fp32 rounding
+can give, and that it still catches a dropped neighbour at the density
+and coordinate size of TRACY's spatial template t10 (2-d points in
+[0, 100]^2, 19 % admitted by the text filter, 2,097,152 rows: about 40
+admitted points per unit^2), where |q|^2 + |x|^2 is about 1e4 and the
+10th nearest neighbour sits at d2 of about 0.08.
+"""
+from __future__ import annotations
+
+import importlib.util
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+ROOT = Path(__file__).resolve().parents[1]
+
+
+def _smoke():
+    spec = importlib.util.spec_from_file_location("chip_smoke",
+                                                  ROOT / "chip_smoke.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+cs = _smoke()
+K = 10
+DENSITY = 0.19 * 2_097_152 / 100.0 ** 2      # admitted points per unit^2
+
+
+def _t10_case(rng):
+    """Admitted points around a t10 query at t10's density: a 4 x 4
+    window around q holds every point that can reach the top 10."""
+    q = rng.uniform(10, 90, 2).astype(np.float32)
+    n = rng.poisson(16 * DENSITY)
+    x = (q + rng.uniform(-2, 2, (n, 2))).astype(np.float32)
+    return q, x
+
+
+def _fp32_d2(q, x):
+    """d2 by the expansion in fp32, the kernels' formula."""
+    qn = np.float32((q * q).sum(dtype=np.float32))
+    xn = (x * x).sum(axis=1, dtype=np.float32)
+    return (qn - np.float32(2) * (x @ q).astype(np.float32)) + xn
+
+
+def _check(q, x, sel, f32):
+    """Run the smoke's tie-aware check on the answer ``sel`` (rows of x,
+    ranked) whose scores come from ``f32``, as the executor reports
+    them (sqrt in fp32, squared back)."""
+    x64, q64 = torch.from_numpy(x.astype(np.float64)), torch.from_numpy(
+        q.astype(np.float64))
+    pks = torch.arange(len(x))
+    td, tp, _ = cs.exact_topk(q64, x64, None, pks, K)
+    f = np.sqrt(np.maximum(f32[sel], 0)).astype(np.float64) ** 2
+    rows = np.concatenate([sel, tp])
+    ex = ((x64[rows] - q64) ** 2).sum(dim=1).numpy()
+    m = float((q64 ** 2).sum()) + float((x64[rows] ** 2).sum(dim=1).max())
+    tol = cs.round_bound(2, m, float(ex.max()))
+    cs.tie_aware(f, sel, ex[:len(sel)], td, tp, tol)
+    return tol / td[-1]
+
+
+def _ranked(f32):
+    return np.lexsort((np.arange(len(f32)), f32))
+
+
+def test_t10_fp32_answers_pass_and_tolerance_is_small():
+    rng = np.random.default_rng(0)
+    power = []
+    for _ in range(200):
+        q, x = _t10_case(rng)
+        f32 = _fp32_d2(q, x)
+        power.append(_check(q, x, _ranked(f32)[:K], f32))
+    # the bound is a few percent of the k-th d2, not of its order
+    assert np.median(power) < 0.1
+
+
+@pytest.mark.parametrize("drop", range(K - 2))
+def test_t10_dropped_neighbour_is_caught(drop):
+    """An answer that lost its rank-``drop`` neighbour (a skipped row or
+    block) and took the 11th in its place fails the check."""
+    rng = np.random.default_rng(1)
+    caught = 0
+    for _ in range(100):
+        q, x = _t10_case(rng)
+        f32 = _fp32_d2(q, x)
+        sel = np.delete(_ranked(f32)[:K + 1], drop)
+        try:
+            _check(q, x, sel, f32)
+        except cs.SmokeFailure:
+            caught += 1
+    assert caught >= 95, f"{caught} of 100 caught"
+
+
+def test_embedding_answers_pass_and_misorder_is_caught():
+    """d = 128, TRACY's topic-clustered embeddings: an fp32-ranked answer
+    passes; swapping two neighbours of distinct d2 fails."""
+    rng = np.random.default_rng(2)
+    centre = rng.normal(size=128).astype(np.float32)
+    x = (centre + 0.4 * rng.normal(size=(4000, 128))).astype(np.float32)
+    q = (centre + 0.2 * rng.normal(size=128)).astype(np.float32)
+    f32 = _fp32_d2(q, x)
+    sel = _ranked(f32)[:K]
+    assert _check(q, x, sel, f32) < 1e-3
+    bad = sel.copy()
+    bad[[2, 6]] = bad[[6, 2]]
+    with pytest.raises(cs.SmokeFailure):
+        _check(q, x, bad, f32)
+
+
+def test_fused_compare_catches_a_wrong_kernel_answer():
+    """The kernel-vs-plain comparison on the CPU (where the wrapper takes
+    the plain version): equal answers pass; a kernel answer that skipped
+    one admitted row fails."""
+    from repro_torch.kernels import fused_scan
+    rng = np.random.default_rng(3)
+    args = cs.fused_inputs(rng, 8, 1100, 2, torch.device("cpu"), "sparse")
+    plain, _ = cs.fused_plain(args)
+    err, swaps, _ = cs.fused_compare(args, fused_scan.fused_scan_topk(*args),
+                                     plain)
+    assert err == 0.0 and swaps == 0
+    d, p, i = (t.clone() for t in plain)
+    qi = int(torch.isfinite(d).sum(dim=1).argmax())
+    d[qi, :-1], p[qi, :-1], i[qi, :-1] = (d[qi, 1:].clone(), p[qi, 1:].clone(),
+                                          i[qi, 1:].clone())
+    with pytest.raises(cs.SmokeFailure):
+        cs.fused_compare(args, (d, p, i), plain)
+
+
+def test_ivf_compare_holds_elements_to_the_rounding_bound():
+    rng = np.random.default_rng(4)
+    q = torch.from_numpy(rng.uniform(0, 100, (5, 2)).astype(np.float32))
+    x = torch.from_numpy(rng.uniform(0, 100, (300, 2)).astype(np.float32))
+    from repro_torch.kernels import ref
+    plain = ref.ivf_scan_ref(q, x)
+    assert cs.ivf_compare(q, x, plain.clone(), plain) == 0.0
+    off = plain.clone()
+    off[1, 7] += 0.05               # well above fp32 rounding at |x|^2 ~ 1e4
+    with pytest.raises(cs.SmokeFailure):
+        cs.ivf_compare(q, x, off, plain)

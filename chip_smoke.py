@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (``src/repro_torch``) on one GPU.
 
-1. Builds the hand-written CUDA kernels from
+1. Builds the five hand-written CUDA kernels from
    ``src/repro_torch/kernels/csrc`` (one ``nvcc`` per source, in parallel)
-   and holds each against its plain PyTorch version at edge shapes.
+   and holds each against its plain PyTorch version at edge shapes (the two
+   ADC kernels bitwise).
 2. Drives the port's main path: one TRACY tweet store (128-d embeddings,
    IVF / ZORDER / INVERTED / BTREE indexes, flush_rows 2048, fanout 4,
    pq_m 8) filled through ``LSMStore.put``/``flush`` on the card, then the
@@ -18,11 +19,26 @@
    d2; a pk in one answer and not the other only where its exact d2 is
    within it of the k-th), printing tol / k-th d2 per template, and every
    filter answer against a numpy evaluation of the predicate.
-4. Holds each kernel against its plain version on the inputs the main path
-   gave it, times both and one PyTorch library call, traces one more t6
-   and t2 batch for the device's busy share, and prints one JSON line
+4. The quantized path on the same store: TRACY's recall-targeted templates
+   g6, g8, g13 (``benchmarks/tracy.py`` ``make_graph_templates`` at
+   recall_target 0.9, as ``benchmarks/pq_study.py`` drives them) through
+   ``Executor.execute_many``, 21 batches of 8 each, each answer held
+   against the float64 brute force over the survivors the ADC kernel kept
+   (the exact re-rank) and in (score, pk) order; recall@10 against the
+   exact dispatch on the same draws; g6 at refine 12 against the exact
+   dispatch, bitwise.
+5. The IVF-PQ probe: a 262,144-row TRACY store whose embedding column is
+   ``IndexKind.PQIVF``, 20 t6- and 20 t8-shape queries through
+   ``Executor.execute`` with a forced ``postfilter_nn`` plan; every
+   returned distance against float64, recall@10 against a brute force.
+6. Holds each kernel against its plain version on the inputs the paths
+   gave it, times both and one PyTorch library call, traces one more t6,
+   g6 and t2 batch for the device's busy share, and prints one JSON line
    ``{"kernels": [...]}``; the last line is
    ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}``.
+
+Each path's launch counts are zeroed just before it and read just after;
+every kernel of the path must have launched.
 
     python3 chip_smoke.py                   # the full run (one GPU)
     python3 chip_smoke.py --phase kernels   # build + edge checks only
@@ -43,6 +59,9 @@ import numpy as np
 HERE = Path(__file__).resolve().parent
 PAPER_ROWS = 8_000_000            # TRACY's preloaded tweets in the paper
 ROWS = 2_097_152                  # one fully compacted 2 M-row segment
+PQIVF_ROWS = 262_144              # the IVF-PQ store (cut further: ingest
+#                                   builds 8 k-means codebooks per flush)
+RECALL_TARGET = 0.9               # the quantized templates' recall target
 BATCHES = 21                      # per template: the first, then 20 timed
 FP32_U = 2.0 ** -24               # fp32 unit roundoff
 HBM_BYTES_PER_S = 3.35e12         # H100 SXM, NVIDIA data sheet
@@ -56,6 +75,10 @@ SOURCES = {
                  "src/repro/kernels/ivf_scan.py:37"),
     "bitmap_filter": ("src/repro_torch/kernels/csrc/bitmap_filter.cu",
                       "src/repro/kernels/bitmap_filter.py:31"),
+    "quantized_scan_topk": ("src/repro_torch/kernels/csrc/quantized_scan.cu",
+                            "src/repro/kernels/quantized_scan.py:86"),
+    "pq_adc": ("src/repro_torch/kernels/csrc/pq_adc.cu",
+               "src/repro/kernels/pq_adc.py:36"),
 }
 
 
@@ -70,6 +93,35 @@ def check(cond: bool, what: str) -> None:
 
 def log(*a) -> None:
     print(*a, flush=True)
+
+
+def kernel_modules():
+    """Each hand-written kernel's wrapper module, by the kernel's name."""
+    from repro_torch.kernels import (bitmap_filter, fused_scan, ivf_scan,
+                                     pq_adc, quantized_scan)
+    return {"fused_scan_topk": fused_scan, "ivf_scan": ivf_scan,
+            "bitmap_filter": bitmap_filter,
+            "quantized_scan_topk": quantized_scan, "pq_adc": pq_adc}
+
+
+def counts():
+    return {n: m.launches.value for n, m in kernel_modules().items()}
+
+
+def reset_counts() -> None:
+    for m in kernel_modules().values():
+        m.launches.reset()
+
+
+def same_bits(a, b) -> bool:
+    """Two tensors hold the same values bit for bit."""
+    import torch
+    a, b = a.detach().cpu().contiguous(), b.detach().cpu().contiguous()
+    if a.shape != b.shape or a.dtype != b.dtype:
+        return False
+    if a.dtype == torch.float32:
+        a, b = a.view(torch.int32), b.view(torch.int32)
+    return bool(torch.equal(a, b))
 
 
 # ---------------------------------------------------------------------------
@@ -309,6 +361,88 @@ def edge_checks(dev, errs) -> None:
             f"{int(want.sum())} pass")
 
 
+def adc_case(rng, nq, n, m, kind):
+    """A random quantized case: queries, codes, codebooks, bitmap, pks.
+    ``dup`` draws every row from 4 code rows (ADC ties that must break by
+    pk); ``tile_empty`` leaves the first query tile with no row (the
+    occupancy skip); ``holes`` masks whole blocks for every query."""
+    q = rng.normal(size=(nq, 4 * m)).astype(np.float32)
+    books = rng.normal(size=(m, 256, 4)).astype(np.float32)
+    codes = rng.integers(0, 256, (n, m), dtype=np.uint8)
+    if kind == "dup":
+        codes = codes[rng.integers(0, 4, n)]
+    mask = rng.random((nq, n)) < 0.3
+    if kind == "full":
+        mask[:] = True
+    elif kind == "tile_empty":
+        mask[:8] = False
+    elif kind == "holes":
+        mask[:] = True
+        mask[:, :512] = False
+        mask[:, n // 2:n // 2 + 512] = False
+    pks = rng.permutation(n).astype(np.int64) * 3 + 1
+    return q, codes, books, mask, pks
+
+
+def adc_edge_checks(dev, errs) -> None:
+    """The two ADC kernels against their plain versions, bitwise: the
+    quantized scan through the main path's host prep (wrapper level, all
+    KMAX slots) and through ``ops`` at k' in {1, 40, 128} against the same
+    host logic over the plain version; the single-query ADC at ragged
+    shapes."""
+    import torch
+    from repro_torch.kernels import ops, pq_adc, quantized_scan, ref
+    rng = np.random.default_rng(1)
+    host = torch.device("cpu")
+    for nq, n, m, kind in [(8, 1000, 8, "partial"), (13, 1537, 16, "holes"),
+                           (16, 1, 4, "full"), (16, 2048, 8, "tile_empty"),
+                           (8, 1100, 8, "dup"), (10, 700, 4, "partial")]:
+        q, codes, books, mask, pks = adc_case(rng, nq, n, m, kind)
+        lut = ops.adc_lut(q, books)
+        args, _ = ops.quantized_kernel_args(lut, codes, mask, pks, dev)
+        out = quantized_scan.quantized_scan_topk(*args)
+        torch.cuda.synchronize()
+        plain = quantized_scan.plain(*args[:5])
+        for a, b, what in zip(out, plain, ("adc", "pks", "rows")):
+            check(same_bits(a, b), f"quantized_scan_topk {what} differ from "
+                  f"the plain version (nq={nq} n={n} m={m} {kind})")
+        kd, kp = out[0].cpu().numpy(), out[1].cpu().numpy()
+        ties = 0
+        for qi in range(nq):
+            eq = kd[qi, 1:] == kd[qi, :-1]
+            fin = np.isfinite(kd[qi, 1:])
+            ties += int((eq & fin).sum())
+            check(bool((kp[qi, 1:][eq & fin] > kp[qi, :-1][eq & fin]).all()),
+                  "quantized_scan_topk: equal ADC not in pk order")
+        if kind == "dup":
+            check(ties > 0, "the duplicate-code case made no ADC ties")
+        for k in (1, 40, 128):
+            gd, gr = ops.quantized_scan_topk(q, codes, books, mask, pks, k,
+                                             device=dev)
+            wd, wr = ops._quantized_kernel(lut, codes, mask, pks, k, host)
+            check(np.array_equal(gd.view(np.uint32), wd.view(np.uint32))
+                  and np.array_equal(gr, wr),
+                  f"ops.quantized_scan_topk k'={k} differs from the plain "
+                  f"version (nq={nq} n={n} m={m} {kind})")
+        log(f"edge quantized_scan_topk nq={nq} n={n} m={m} mask={kind}: "
+            f"bitwise equal to the plain version (wrapper and k' in 1, 40, "
+            f"128), ADC ties {ties}")
+    for n, m, dup in [(1, 8, False), (1000, 4, False), (4099, 16, True),
+                      (1_000_003, 8, False)]:
+        codes = rng.integers(0, 256, (n, m), dtype=np.uint8)
+        if dup:
+            codes = codes[rng.integers(0, 3, n)]
+        lut = (rng.normal(size=(m, 256)) ** 2).astype(np.float32)
+        ct, lt = torch.from_numpy(codes).to(dev), torch.from_numpy(lut).to(dev)
+        out = pq_adc.pq_adc(ct, lt)
+        torch.cuda.synchronize()
+        check(same_bits(out, ref.pq_adc_ref(ct, lt)),
+              f"pq_adc differs from the plain version (n={n} m={m})")
+        log(f"edge pq_adc n={n} m={m} dup={dup}: bitwise equal to the plain "
+            f"version")
+    errs["quantized_scan_topk"] = errs["pq_adc"] = 0.0
+
+
 # ---------------------------------------------------------------------------
 # phase 2: the main path
 # ---------------------------------------------------------------------------
@@ -424,12 +558,15 @@ def templates(data: TracyData):
 
 def brute_nn(dev, xs, mask, qv, k, res):
     """Hold one NN answer (the executor's results) against the exact
-    answer, a plain PyTorch brute force on the card (row i holds pk i).
+    answer over the rows ``mask`` admits (numpy or a tensor on the card,
+    None for every row), a plain PyTorch brute force on the card (row i
+    holds pk i).
     Returns (tie swaps, tol / k-th d2 or None when nothing is admitted)."""
     import torch
     x64 = xs[qv.shape[0]]
     q64 = torch.from_numpy(qv.astype(np.float64)).to(dev)
-    adm = torch.from_numpy(mask).to(dev) if mask is not None else None
+    adm = mask if mask is None or isinstance(mask, torch.Tensor) \
+        else torch.from_numpy(mask).to(dev)
     td, tp, _ = exact_topk(q64, x64, adm, torch.arange(len(x64), device=dev),
                            k)
     f = np.asarray([r.score for r in res], np.float64) ** 2
@@ -446,31 +583,22 @@ def brute_nn(dev, xs, mask, qv, k, res):
     return tie_aware(f, fp, ex[:len(fp)], td, tp, tol), tol / td[-1]
 
 
-def main_path(dev, record):
+def tracy_store(dev, data: TracyData, rows: int, vector_index: str):
+    """The TRACY tweet table (``benchmarks/tracy.py``'s schema at its
+    published widths: 128-d embeddings with ``vector_index``, ZORDER
+    points, INVERTED text, BTREE time and likes; flush_rows 2048, fanout
+    4, pq_m 8) filled with ``rows`` rows through ``LSMStore.put`` and
+    ``flush`` on ``dev``.  Returns (store, ingest seconds)."""
     import torch
-    from repro_torch.core.executor import Executor
     from repro_torch.core.lsm import LSMConfig, LSMStore
     from repro_torch.core.types import Column, ColumnType, IndexKind, Schema
-    from repro_torch.kernels import bitmap_filter, fused_scan, ivf_scan
-    kernels = {"fused_scan_topk": fused_scan, "ivf_scan": ivf_scan,
-               "bitmap_filter": bitmap_filter}
-
-    def counts():
-        return {n: m.launches.value for n, m in kernels.items()}
-
-    dim, rows = 128, ROWS
-    log(f"main path: TRACY tweet table, {rows} rows (paper: "
-        f"{PAPER_ROWS}; cut to fit the run's time limit), dim={dim} "
-        f"flush_rows=2048 fanout=4 pq_m=8 device={dev}")
     schema = Schema([
-        Column("embedding", ColumnType.VECTOR, dim=dim, index=IndexKind.IVF),
+        Column("embedding", ColumnType.VECTOR, dim=data.dim,
+               index=IndexKind[vector_index]),
         Column("coordinate", ColumnType.SPATIAL, index=IndexKind.ZORDER),
         Column("content", ColumnType.TEXT, index=IndexKind.INVERTED),
         Column("time", ColumnType.SCALAR, index=IndexKind.BTREE),
         Column("likes", ColumnType.SCALAR, index=IndexKind.BTREE)])
-    data = TracyData(dim)
-    for m in kernels.values():
-        m.launches.reset()
     t0 = time.perf_counter()
     store = LSMStore(schema, LSMConfig(flush_rows=2048, fanout=4, pq_m=8),
                      device=dev)
@@ -482,8 +610,20 @@ def main_path(dev, record):
         done += n
     store.flush()
     torch.cuda.synchronize()
-    ingest_s = time.perf_counter() - t0
     data.finish()
+    return store, time.perf_counter() - t0
+
+
+def main_path(dev, record):
+    import torch
+    from repro_torch.core.executor import Executor
+    dim, rows = 128, ROWS
+    log(f"main path: TRACY tweet table, {rows} rows (paper: "
+        f"{PAPER_ROWS}; cut to fit the run's time limit), dim={dim} "
+        f"flush_rows=2048 fanout=4 pq_m=8 device={dev}")
+    data = TracyData(dim)
+    reset_counts()
+    store, ingest_s = tracy_store(dev, data, rows, "IVF")
     ingest = counts()
     log(f"ingest: {ingest_s:.2f} s, segments "
         f"{[s.n_rows for s in store.segments]}, launches {ingest}")
@@ -536,7 +676,195 @@ def main_path(dev, record):
     log(f"main path launches (ingest + queries): {total}")
     log(f"brute-force check: every answer agrees, tie swaps "
         f"{swaps_total}")
-    return total, (ex, tmpl)
+    return total, {"ex": ex, "tmpl": tmpl, "xs": xs}
+
+
+def quantized_templates(tmpl):
+    """TRACY's recall-targeted NN templates g6 (pure NN), g8 (NN + time
+    range), g13 (disjunctive NN): t6, t8, t13 with recall_target 0.9.  Each
+    draw returns (quantized query, its exact twin of the same draw,
+    brute-force mask function, rank spec)."""
+    from repro_torch.core import query as q
+
+    def make(tname):
+        def g():
+            exact, mask_fn, spec = tmpl[tname]()
+            quant = q.HybridQuery(where=exact.where, ranks=exact.ranks,
+                                  k=exact.k, recall_target=RECALL_TARGET)
+            return quant, exact, mask_fn, spec
+        return g
+    return {"g6": make("t6"), "g8": make("t8"), "g13": make("t13")}
+
+
+def survivors(dev, rerank, qi: int, n: int):
+    """The rows (as a pk-indexed bool mask over ``n`` pks on the card) the
+    exact re-rank of query ``qi`` scanned: its bitmap in the recorded
+    fused-scan inputs of the batch."""
+    import torch
+    _, _, mt, pkt, _, _ = rerank
+    rows = torch.nonzero(mt[qi]).flatten()
+    adm = torch.zeros(n, dtype=torch.bool, device=dev)
+    adm[pkt[rows].long()] = True
+    return adm
+
+
+def quantized_path(dev, record, ctx) -> dict:
+    """g6, g8, g13 at recall_target 0.9 on the main path's store, 21
+    batches of 8 each through ``Executor.execute_many``."""
+    import torch
+    ex, xs = ctx["ex"], ctx["xs"]
+    n = len(xs[128])
+    gt = quantized_templates(ctx["tmpl"])
+    ctx["gt"] = gt
+    total = dict.fromkeys(SOURCES, 0)
+
+    def quantized_run(qs, plans=None):
+        """One quantized ``execute_many``, its launches counted from 0 just
+        before it to just after it; the exact dispatch's comparison runs
+        stay outside these windows."""
+        reset_counts()
+        out = ex.execute_many(qs, plans=plans)
+        torch.cuda.synchronize()
+        for k, v in counts().items():
+            total[k] += v
+        return out
+
+    for name in ("g6", "g8", "g13"):
+        before = dict(total)
+        times, swaps, power, recalls, plan_desc = [], 0, [], [], ""
+        for _ in range(BATCHES):
+            made = [gt[name]() for _ in range(8)]
+            record["template"] = name
+            t1 = time.perf_counter()
+            out = quantized_run([m[0] for m in made])
+            times.append((time.perf_counter() - t1) * 1e3)
+            rerank = record["fused_last"]
+            record["template"] = None
+            head = out[0][1].plan.splitlines()[0]
+            quantized = "dispatch=quantized" in head
+            plan_desc = head
+            if name != "g8":
+                check(quantized, f"{name}: planned {head}, not the quantized "
+                      f"dispatch")
+            exact = ex.execute_many([m[1] for m in made])
+            for qi, ((qq, _, mask_fn, spec), (res, st), (eres, _)) in \
+                    enumerate(zip(made, out, exact)):
+                keys = [(r.score, r.pk) for r in res]
+                check(keys == sorted(keys), f"{name}: answer not in "
+                      f"(score, pk) order")
+                mask = mask_fn() if mask_fn is not None else None
+                if quantized:
+                    # (c) the answer is the exact top-k over the survivors
+                    # the ADC kernel kept; (b) each score is its row's
+                    # exact distance at the fp32 rounding bound
+                    adm = survivors(dev, rerank, qi, n)
+                    kept = int(adm.sum())
+                    check(0 < kept <= qq.k * 16 and st.rerank_rows == kept,
+                          f"{name}: {kept} survivors, rerank_rows "
+                          f"{st.rerank_rows}")
+                    if mask is not None:
+                        check(bool(torch.from_numpy(mask).to(dev)[adm].all()),
+                              f"{name}: a survivor fails the filter")
+                else:
+                    adm = mask
+                sw, pw = brute_nn(dev, xs, adm, spec[1], qq.k, res)
+                swaps += sw
+                if pw is not None:
+                    power.append(pw)
+                want = {r.pk for r in eres}
+                recalls.append(len({r.pk for r in res} & want)
+                               / max(1, len(want)))
+        delta = {k: v - before[k] for k, v in total.items()}
+        rest = np.asarray(times[1:])
+        log(f"query {name} (recall_target={RECALL_TARGET}): {plan_desc}; "
+            f"first_batch_ms={times[0]:.3f} p50_batch_ms="
+            f"{np.median(rest):.3f} (of the next {len(rest)} batches of 8; "
+            f"min {rest.min():.3f} max {rest.max():.3f}) launches {delta}; "
+            f"{len(recalls)} answers held against the float64 top-k over "
+            f"their survivors, tie swaps {swaps}, tol / k-th d2 median "
+            f"{np.median(power):.3g}; recall@10 against the exact dispatch "
+            f"{np.mean(recalls):.4f}")
+    same = 0
+    for _ in range(3):
+        made = [gt["g6"]() for _ in range(8)]
+        plans = [ex.plan(m[0]) for m in made]
+        for p in plans:
+            p.refine = 12                       # k' = 120 <= KMAX
+        quant = quantized_run([m[0] for m in made], plans)
+        exact = ex.execute_many([m[1] for m in made])
+        same += sum([(r.pk, r.score) for r in a] == [(r.pk, r.score)
+                                                     for r in b]
+                    for (a, _), (b, _) in zip(quant, exact))
+    log(f"g6 at refine=12: {same} of 24 answers bitwise the exact "
+        f"dispatch's")
+    # each quantized dispatch re-ranks its survivors once: one fused launch
+    # for each ADC launch, none of them the exact dispatch's
+    check(total["fused_scan_topk"] == total["quantized_scan_topk"],
+          f"quantized path: {total['fused_scan_topk']} re-rank launches for "
+          f"{total['quantized_scan_topk']} ADC launches")
+    return total
+
+
+def pqivf_path(dev) -> dict:
+    """The IVF-PQ probe: a TRACY store whose embedding column is
+    ``IndexKind.PQIVF``, 20 t6- and 20 t8-shape queries through
+    ``Executor.execute`` with a forced ``postfilter_nn`` plan."""
+    import torch
+    from repro_torch.core.executor import Executor
+    from repro_torch.core.optimizer.planner import Plan
+    dim, rows = 128, PQIVF_ROWS
+    log(f"IVF-PQ probe: TRACY tweet table with embedding PQIVF, {rows} rows "
+        f"(paper: {PAPER_ROWS}; cut to keep the whole smoke inside the "
+        f"run's time limit), dim={dim} flush_rows=2048 fanout=4 pq_m=8")
+    data = TracyData(dim, seed=1)
+    reset_counts()
+    store, ingest_s = tracy_store(dev, data, rows, "PQIVF")
+    log(f"IVF-PQ ingest: {ingest_s:.2f} s, segments "
+        f"{[s.n_rows for s in store.segments]}, launches {counts()}")
+    ex = Executor(store)
+    tmpl = templates(data)
+    x64 = torch.from_numpy(data.cols["embedding"]).to(dev, torch.float64)
+    for name in ("t6", "t8"):
+        times, recalls, worst = [], [], 0.0
+        for _ in range(20):
+            qq, mask_fn, spec = tmpl[name]()
+            plan = Plan(kind="postfilter_nn",
+                        residual=[qq.where] if qq.where is not None else [],
+                        ranks=list(qq.ranks), k=qq.k)
+            t1 = time.perf_counter()
+            res, _ = ex.execute(qq, plan=plan)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t1) * 1e3)
+            check(0 < len(res) <= qq.k, f"IVF-PQ {name}: {len(res)} rows")
+            mask = mask_fn() if mask_fn is not None else None
+            pks = np.asarray([r.pk for r in res], np.int64)
+            if mask is not None:
+                check(bool(mask[pks].all()), f"IVF-PQ {name}: an answer "
+                      f"fails the filter")
+            q64 = torch.from_numpy(spec[1].astype(np.float64)).to(dev)
+            rt = torch.as_tensor(pks, device=dev)
+            ex_d2 = ((x64[rt] - q64) ** 2).sum(dim=1).cpu().numpy()
+            m = float((q64 ** 2).sum()) + float((x64[rt] ** 2).sum(1).max())
+            tol = round_bound(dim, m, float(ex_d2.max()))
+            f = np.asarray([r.score for r in res], np.float64) ** 2
+            err = np.abs(f - ex_d2)
+            check((err <= tol).all(), f"IVF-PQ {name}: a distance is "
+                  f"{err.max():.3g} from float64 (tol {tol:.3g})")
+            worst = max(worst, float((err / tol).max()))
+            keys = [(r.score, r.pk) for r in res]
+            check(keys == sorted(keys), f"IVF-PQ {name}: answer order")
+            adm = torch.from_numpy(mask).to(dev) if mask is not None else None
+            _, tp, _ = exact_topk(q64, x64, adm,
+                                  torch.arange(len(x64), device=dev), qq.k)
+            recalls.append(len(set(pks.tolist()) & set(tp.tolist()))
+                           / max(1, len(tp)))
+        t = np.asarray(times)
+        log(f"IVF-PQ {name}: 20 queries, p50 {np.median(t):.3f} ms (min "
+            f"{t.min():.3f} max {t.max():.3f}); every distance within "
+            f"the fp32 bound of float64 (worst {worst:.3g} of it); "
+            f"recall@10 against the float64 brute force "
+            f"{np.mean(recalls):.4f}")
+    return counts()
 
 
 # ---------------------------------------------------------------------------
@@ -544,16 +872,25 @@ def main_path(dev, record):
 # ---------------------------------------------------------------------------
 
 def install_recorder(record):
-    """Keep the inputs the main path hands each kernel wrapper (one set
-    per template for the fused scan, one per shape for the others)."""
-    from repro_torch.kernels import bitmap_filter, fused_scan, ivf_scan
+    """Keep the inputs the paths hand each kernel wrapper (one set per
+    template for the two scans, the last fused call apart, one per shape
+    for the others).  A ``template`` of None records no scan inputs."""
+    from repro_torch.kernels import (bitmap_filter, fused_scan, ivf_scan,
+                                     pq_adc, quantized_scan)
     orig = {"fused": fused_scan.fused_scan_topk, "ivf": ivf_scan.ivf_scan,
-            "bitmap": bitmap_filter.bitmap_filter}
-    record.update(fused={}, ivf={}, bitmap={})
+            "bitmap": bitmap_filter.bitmap_filter,
+            "quantized": quantized_scan.quantized_scan_topk,
+            "pq": pq_adc.pq_adc}
+    record.update(fused={}, quantized={}, ivf={}, bitmap={}, pq={})
 
-    def fused_rec(*a):
-        record["fused"][record.get("template", "ingest")] = a
-        return orig["fused"](*a)
+    def per_template(kind):
+        def rec(*a):
+            if kind == "fused":
+                record["fused_last"] = a
+            if record.get("template") is not None:
+                record[kind][record["template"]] = a
+            return orig[kind](*a)
+        return rec
 
     def per_shape(kind):
         def rec(x, y):
@@ -566,9 +903,11 @@ def install_recorder(record):
             return orig[kind](x, y)
         return rec
 
-    fused_scan.fused_scan_topk = fused_rec
+    fused_scan.fused_scan_topk = per_template("fused")
+    quantized_scan.quantized_scan_topk = per_template("quantized")
     ivf_scan.ivf_scan = per_shape("ivf")
     bitmap_filter.bitmap_filter = per_shape("bitmap")
+    pq_adc.pq_adc = per_shape("pq")
     return orig
 
 
@@ -612,8 +951,10 @@ def measure(record, orig, launches, errs):
     main = "t6" if "t6" in fs_rows else next(iter(fs_rows))
     k_ms, p_ms, bound, by, l_ms = fs_rows[main]
     out.append(("fused_scan_topk", k_ms, p_ms, bound, by, l_ms))
+    out.append(measure_quantized(record, orig))
 
-    for kind, name in (("ivf", "ivf_scan"), ("bitmap", "bitmap_filter")):
+    for kind, name in (("ivf", "ivf_scan"), ("bitmap", "bitmap_filter"),
+                       ("pq", "pq_adc")):
         best = None
         for key, (x, y, calls) in sorted(record[kind].items(),
                                          key=lambda kv: -kv[1][2]):
@@ -627,6 +968,16 @@ def measure(record, orig, launches, errs):
                 flops = 2 * nq * n * d
                 lib = (lambda x=x, y=y: torch.cdist(x, y).square())
                 plain = (lambda x=x, y=y: ref.ivf_scan_ref(x, y))
+            elif kind == "pq":
+                check(same_bits(o, ref.pq_adc_ref(x, y)), f"pq_adc main-path "
+                      f"input {key}: differs from the plain version")
+                err = 0.0
+                n, m = x.shape
+                nbytes, flops = n * m + 4 * y.numel() + 4 * n, n * m
+                # the library yardstick: one gather of the LUT, summed
+                lib = (lambda x=x, y=y:
+                       torch.gather(y, 1, x.T.long()).sum(dim=0))
+                plain = (lambda x=x, y=y: ref.pq_adc_ref(x, y))
             else:
                 want = ref.bitmap_filter_ref(x, y)
                 err = float((o.bool() != want).sum())
@@ -663,15 +1014,66 @@ def measure(record, orig, launches, errs):
     return line
 
 
-def busy_share(ex, tmpl) -> None:
-    """Device busy share of one more t6 and t2 batch (after the counts were
-    read): device time of every kernel and copy in a ``torch.profiler``
-    trace over the batch's wall time.  A trace without device events is
-    reported as not measured."""
+def measure_quantized(record, orig):
+    """The quantized scan on every template's recorded main-path input,
+    bitwise against its plain version; g6's batch timed with the plain
+    version and a library yardstick (gather-sum + where + topk)."""
+    import torch
+    from repro_torch.kernels import fused_scan, quantized_scan
+    check(bool(record["quantized"]), "the quantized scan recorded no input")
+    row = None
+    for tname, a in record["quantized"].items():
+        kout = orig["quantized"](*a)
+        torch.cuda.synchronize()
+        plain = quantized_scan.plain(*a[:5])
+        for x, y, what in zip(kout, plain, ("adc", "pks", "rows")):
+            check(same_bits(x, y), f"quantized_scan_topk {tname} main-path "
+                  f"input: {what} differ from the plain version")
+        ck, mk, _ = fused_scan.compact(*a[1:5])
+        nq, m = a[0].shape[0], ck.shape[1]
+        pairs = int(mk.bool().sum())
+        log(f"kernel quantized_scan_topk {tname} nq={nq} kept rows="
+            f"{ck.shape[0]} m={m}: adc, pks and rows bitwise equal to the "
+            f"plain version; {pairs} admitted (query, row) pairs")
+        if tname != "g6":
+            continue
+        rows_any = int(mk.bool().any(dim=0).sum())
+        nbytes = (rows_any * (m + 4) + a[2].numel() + a[0].numel() * 4
+                  + nq * 128 * 12)
+        flops = m * pairs
+        k_ms = cuda_ms(lambda: orig["quantized"](*a))
+        p_ms = cuda_ms(lambda: quantized_scan.plain(*a[:5]), reps=3, warm=1)
+        lut3 = a[0].view(nq, m, 256)
+
+        def library():
+            idx = ck.T.long().unsqueeze(0).expand(nq, -1, -1)
+            dd = torch.gather(lut3, 2, idx).sum(dim=1)
+            dd = torch.where(mk.bool(), dd, torch.full_like(dd, float("inf")))
+            return torch.topk(dd, 128, dim=1, largest=False)
+        l_ms = cuda_ms(library, reps=3, warm=1)
+        tb, tf = nbytes / HBM_BYTES_PER_S, flops / FP32_FLOPS
+        bound = max(tb, tf) * 1e3
+        by = "bytes" if tb >= tf else "operations"
+        row = ("quantized_scan_topk", k_ms, p_ms, bound, by, l_ms)
+        log(f"kernel quantized_scan_topk {tname}: kernel {k_ms:.4f} ms, plain "
+            f"{p_ms:.4f} ms, gather-sum+where+topk {l_ms:.4f} ms, bound "
+            f"{bound:.4f} ms ({by}, {nbytes} bytes)")
+    check(row is not None, "g6 never reached the quantized scan")
+    return row
+
+
+def busy_share(ctx) -> None:
+    """Device busy share of one more t6, g6 and t2 batch (after the counts
+    were read): device time of every kernel and copy in a
+    ``torch.profiler`` trace over the batch's wall time.  A trace without
+    device events is reported as not measured."""
     import torch
     from torch.profiler import ProfilerActivity, profile
-    for name in ("t6", "t2"):
-        queries = [tmpl[name]()[0] for _ in range(8)]
+    ex, tmpl, gt = ctx["ex"], ctx["tmpl"], ctx["gt"]
+    draw = {"t6": lambda: tmpl["t6"]()[0], "g6": lambda: gt["g6"]()[0],
+            "t2": lambda: tmpl["t2"]()[0]}
+    for name in ("t6", "g6", "t2"):
+        queries = [draw[name]() for _ in range(8)]
         try:
             with profile(activities=[ProfilerActivity.CPU,
                                      ProfilerActivity.CUDA]) as prof:
@@ -733,16 +1135,28 @@ def main() -> int:
                     log(f"  {name}: {ln.strip()}")
         errs = {n: 0.0 for n in SOURCES}
         edge_checks(dev, errs)
+        adc_edge_checks(dev, errs)
         if args.phase == "kernels":
             log("kernels phase finished: no result")
             return 0
         record = {}
         orig = install_recorder(record)
-        launches, (ex, tmpl) = main_path(dev, record)
-        for name, n in launches.items():
-            check(n > 0, f"{name} never launched on the main path")
+        paths = {}
+        paths["main"], ctx = main_path(dev, record)
+        paths["quantized"] = quantized_path(dev, record, ctx)
+        paths["IVF-PQ"] = pqivf_path(dev)
+        for path, must in (("main", ("fused_scan_topk", "ivf_scan",
+                                     "bitmap_filter")),
+                           ("quantized", ("quantized_scan_topk",
+                                          "fused_scan_topk")),
+                           ("IVF-PQ", ("pq_adc", "ivf_scan"))):
+            log(f"{path} path launches: {paths[path]}")
+            for name in must:
+                check(paths[path][name] > 0,
+                      f"{name} never launched on the {path} path")
+        launches = {n: sum(c[n] for c in paths.values()) for n in SOURCES}
         line = measure(record, orig, launches, errs)
-        busy_share(ex, tmpl)
+        busy_share(ctx)
         log(card_line())
         log(json.dumps({"kernels": line}))
     except SmokeFailure as e:

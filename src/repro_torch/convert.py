@@ -9,7 +9,8 @@ package's segment files (``repro.core.segment`` save format):
   ``col.<name>`` per column, or ``col.<name>.offsets`` + ``col.<name>.blob``
   for TEXT/BLOB columns (``segment.pack_object_array``),
   ``pq.<name>.codes`` + ``pq.<name>.codebooks`` for PQ residence,
-  ``idx.<name>.<key>`` per index array (``SecondaryIndex.to_arrays()``),
+  ``idx.<name>.<key>`` per index array (``SecondaryIndex.to_arrays()``;
+  an IVF-PQ index carries its ``codes`` and ``codebooks`` there),
 
 and rebuilds segments, indexes, PQ residence and the store's write
 frontier from them, so a port store answers from exactly the state the
@@ -84,15 +85,19 @@ def store_from_arrays(schema: Schema,
     for seg in segs:
         store.segments.append(seg)
         store.global_index.on_new_segment(seg)
-    # one fresh shared book id per column, so every segment's codes pack
-    # together as they did in the exporting store
+    # one fresh book id per distinct codebook set of a column, so segments
+    # that shared books in the exporting store pack together here and
+    # segments that did not fall back to the exact scan, as they did there
     for c in schema.columns:
         parts = [s.quantized[c.name] for s in segs if c.name in s.quantized]
+        ids = {}
+        for qc in parts:
+            key = qc.codebooks.tobytes()
+            if key not in ids:
+                ids[key] = qz.fresh_book_id()
+            qc.book_id = ids[key]
         if parts:
-            bid = qz.fresh_book_id()
-            for qc in parts:
-                qc.book_id = bid
-            store._pq_books[c.name] = (bid, parts[0].codebooks)
+            store._pq_books[c.name] = (parts[0].book_id, parts[0].codebooks)
     live = [s for s in segs if s.n_rows]
     if live:
         pk = np.concatenate([s.pk for s in live])

@@ -19,8 +19,7 @@ def default_index_factory(column: Column):
     if k == IndexKind.IVF:
         return IVFIndex()
     if k == IndexKind.PQIVF:
-        raise NotImplementedError("IndexKind.PQIVF is not ported yet "
-                                  "(ROADMAP queue 1, item 10)")
+        return IVFIndex(use_pq=True)
     if k == IndexKind.GRAPH:
         raise NotImplementedError("IndexKind.GRAPH is not ported yet "
                                   "(ROADMAP queue 1, item 8)")

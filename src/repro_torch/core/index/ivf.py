@@ -12,8 +12,10 @@ posting blocks -> exact distances (ivf_scan kernel) -> top-k. Only the
 selected blocks are touched: that is the block-granular I/O claim vs
 fully-memory-resident per-segment indexes (SingleStore-V).
 
+The PQ variant (``IndexKind.PQIVF``) stores uint8 codes; distances via
+ADC (the pq_adc kernel), with exact re-ranking of the top candidates.
+
 Every distance runs on the index's ``device`` (set by the owning store).
-The PQ variant (``IndexKind.PQIVF``) is not ported yet.
 """
 from __future__ import annotations
 
@@ -46,13 +48,19 @@ def kmeans(x: np.ndarray, k: int, iters: int = 8, seed: int = 0,
 class IVFIndex(SecondaryIndex):
     kind = "ivf"
 
-    def __init__(self, n_probe: int = 4):
+    def __init__(self, n_probe: int = 4, use_pq: bool = False,
+                 pq_m: int = 8, refine: int = 4):
         self.n_probe = n_probe
+        self.use_pq = use_pq
+        self.pq_m = pq_m
+        self.refine = refine            # PQ: exact-rerank factor (x k)
         # built state
         self.centroids: Optional[np.ndarray] = None
         self.post_rows: Optional[np.ndarray] = None     # row ids, grouped
         self.post_vecs: Optional[np.ndarray] = None     # vectors, grouped
         self.post_offsets: Optional[np.ndarray] = None  # centroid -> range
+        self.codes: Optional[np.ndarray] = None         # PQ codes (n, m)
+        self.codebooks: Optional[np.ndarray] = None     # (m, 256, dsub)
         self.blocks_total = 0
 
     # ------------------------------------------------------------- build
@@ -68,6 +76,8 @@ class IVFIndex(SecondaryIndex):
         k = max(1, int(math.sqrt(n)))
         self.centroids = kmeans(vecs, k, device=self.device)
         self._group(vecs, self._assign(vecs))
+        if self.use_pq:
+            self._build_pq(vecs)
 
     def _assign(self, vecs: np.ndarray) -> np.ndarray:
         return kops.assign_nearest(vecs, self.centroids, device=self.device)
@@ -140,6 +150,48 @@ class IVFIndex(SecondaryIndex):
             cents = cents[np.sort(np.argsort(occ)[::-1][:target_k])]
         self.centroids = cents
         self._group(vecs, self._assign(vecs))
+        if self.use_pq:
+            donor = max((p for p in parts
+                         if getattr(p, "codebooks", None) is not None),
+                        key=lambda p: len(p.post_rows), default=None)
+            if donor is None:
+                self._build_pq(vecs)
+            else:
+                self._reencode_pq(vecs, donor.codebooks)
+
+    def _reencode_pq(self, vecs: np.ndarray, codebooks: np.ndarray) -> None:
+        """PQ codebook reuse: keep a donor part's codebooks and re-encode
+        the merged vectors (one assignment per subspace, no k-means)."""
+        m, _, dsub = codebooks.shape
+        self.pq_m = m
+        self.codebooks = codebooks
+        codes = [kops.assign_nearest(vecs[:, j * dsub:(j + 1) * dsub],
+                                     codebooks[j], device=self.device)
+                 for j in range(m)]
+        codes = np.stack(codes, axis=1).astype(np.uint8)
+        self.codes = codes[self.post_rows]
+
+    def _build_pq(self, vecs: np.ndarray) -> None:
+        n, d = vecs.shape
+        m = self.pq_m
+        while d % m:
+            m //= 2
+        self.pq_m = m
+        dsub = d // m
+        n_codes = min(256, max(2, n))
+        books, codes = [], []
+        for j in range(m):
+            sub = vecs[:, j * dsub:(j + 1) * dsub]
+            cb = kmeans(sub, n_codes, seed=j, device=self.device)
+            if len(cb) < 256:
+                cb = np.pad(cb, ((0, 256 - len(cb)), (0, 0)),
+                            constant_values=1e30)
+            books.append(cb)
+            codes.append(kops.assign_nearest(sub, cb[:n_codes],
+                                             device=self.device))
+        self.codebooks = np.stack(books).astype(np.float32)   # (m,256,dsub)
+        codes = np.stack(codes, axis=1).astype(np.uint8)       # (n, m)
+        self.codes = codes[self.post_rows]                     # grouped order
 
     # ------------------------------------------------------- persistence
     def to_arrays(self):
@@ -152,6 +204,9 @@ class IVFIndex(SecondaryIndex):
                            np.zeros(len(self.centroids), np.float32)),
                    np.float32),
                "blocks_total": np.asarray([self.blocks_total], np.int64)}
+        if self.codes is not None:
+            out["codes"] = np.asarray(self.codes, np.uint8)
+            out["codebooks"] = np.asarray(self.codebooks, np.float32)
         return out
 
     def from_arrays(self, arrays, segment, column) -> None:
@@ -162,8 +217,10 @@ class IVFIndex(SecondaryIndex):
         self.radii = np.asarray(arrays["radii"], np.float32)
         self.blocks_total = int(arrays["blocks_total"][0])
         if "codes" in arrays:
-            raise NotImplementedError("IVF-PQ indexes are not ported yet "
-                                      "(ROADMAP queue 1, item 10)")
+            self.codes = np.asarray(arrays["codes"], np.uint8)
+            self.codebooks = np.asarray(arrays["codebooks"], np.float32)
+            self.use_pq = True
+            self.pq_m = int(self.codebooks.shape[0])
 
     # ------------------------------------------------------------- query
     def _probe_order(self, q: np.ndarray) -> np.ndarray:
@@ -188,6 +245,17 @@ class IVFIndex(SecondaryIndex):
             return np.zeros((0,)), rows, 0
         blocks_read = sum((s.stop - s.start + BLOCK_ROWS - 1) // BLOCK_ROWS
                           for s in cand_slices)
+        if self.use_pq:
+            codes = np.concatenate([self.codes[s] for s in cand_slices])
+            d_adc = kops.pq_adc_distances(q, codes, self.codebooks,
+                                          device=self.device)
+            keep = min(len(rows), max(k * self.refine, k))
+            top = np.argpartition(d_adc, keep - 1)[:keep]
+            vecs = np.concatenate([self.post_vecs[s] for s in cand_slices])
+            d_exact = self._euclid(self._l2(q, vecs[top]))
+            # (score, row) comparator: pk order within a segment
+            order = np.lexsort((rows[top], d_exact))[:k]
+            return d_exact[order], rows[top][order], blocks_read
         vecs = np.concatenate([self.post_vecs[s] for s in cand_slices])
         d, idx = kops.block_topk(q, vecs, min(k, len(rows)),
                                  device=self.device)

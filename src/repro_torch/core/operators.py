@@ -18,9 +18,10 @@ per segment, whatever the batch size), and ``RankScore`` stacks the batch
 query vectors into single ``l2_distances(Q, X)`` kernel calls — N
 sequential segment sweeps become one.
 
-Kernel work runs on the store's device (``ctx.device``); the fused scan
-reads the packed column where ``pack_segments`` keeps it, on that device.
-The quantized, graph and sharded operators are not ported yet.
+Kernel work runs on the store's device (``ctx.device``); the fused and
+quantized scans read the packed column and codes where ``pack_segments``
+and ``pack_quantized`` keep them, on that device.  The graph and sharded
+operators are not ported yet.
 """
 from __future__ import annotations
 
@@ -36,7 +37,7 @@ from repro_torch.obs import trace as obs_trace
 from repro_torch.core import visibility as vis_lib
 from repro_torch.core.index.text import tokenize
 from repro_torch.core.optimizer.cost import (C_FILTER_BLOCK, C_MERGE,
-                                       C_ROW_RESIDUAL,
+                                       C_RERANK_ROW, C_ROW_RESIDUAL,
                                        C_VECTOR_BLOCK, conjunct_passing)
 from repro_torch.core.types import BLOCK_ROWS
 from repro_torch.kernels import ops as kops
@@ -753,7 +754,7 @@ class FusedScanTopK(PhysicalOp):
 
     def _gather(self, ctx: PipelineContext):
         """Drain the source into (segments, packed column, batch bitmap,
-        stacked query matrix)."""
+        stacked query matrix) — shared by the exact and quantized scans."""
         from repro_torch.core import segment as seg_lib
         r0 = ctx.queries[0].ranks[0]
         segs, masks = [], []
@@ -770,10 +771,15 @@ class FusedScanTopK(PhysicalOp):
         return segs, packed, mask_all, Q
 
     def _emit(self, ctx: PipelineContext, segs, packed, mask_all,
-              d2, rows, scan_row_bytes: int) -> List[List[Candidates]]:
+              d2, rows, scan_row_bytes: int,
+              rerank_rows: Optional[List[int]] = None
+              ) -> List[List[Candidates]]:
         """Turn kernel (d2, rows) output into per-query candidates and
         charge stats.  ``scan_row_bytes`` is the logical rank-column bytes
-        the scan streams per mask-passing row (4*d)."""
+        the candidate-generation scan streams per mask-passing row (4*d
+        exact, m quantized) — ``bytes_scanned`` measures the scan phase
+        only; the exact re-rank's full-precision gather is reported
+        separately as ``rerank_rows`` (x 4*d bytes, derivable)."""
         out: List[List[Candidates]] = [[] for _ in range(ctx.nq)]
         unfiltered_blocks = sum(s.n_blocks for s in segs)
         sp = obs_trace.current_span()
@@ -786,6 +792,8 @@ class FusedScanTopK(PhysicalOp):
             if sp is not None:
                 sp.add("rows", n_cand)
                 sp.add("bytes", n_cand * scan_row_bytes)
+            if rerank_rows is not None:
+                ctx.stats[qi].rerank_rows += rerank_rows[qi]
             if not plan.indexed and not plan.residual and not plan.subplans:
                 blocks = unfiltered_blocks * len(qq.ranks)
                 ctx.stats[qi].blocks_read += blocks
@@ -817,6 +825,57 @@ class FusedScanTopK(PhysicalOp):
         return self._emit(ctx, segs, packed, mask_all, d2, rows,
                           scan_row_bytes=packed.x.shape[1]
                           * packed.x.element_size())
+
+
+class QuantizedScanTopK(FusedScanTopK):
+    """Quantized dispatch: PQ-ADC candidate generation over the packed
+    code matrix (``kernels/quantized_scan.py`` — m bytes/row instead of
+    4*d) keeping k' = refine*k survivors per query, then an exact re-rank
+    of the survivors through the ordinary fused scan with the survivor
+    bitmap.  The re-rank reuses ``kops.fused_scan_topk`` verbatim, so the
+    final (score, pk) results carry the exact path's arithmetic and
+    tie-break comparator — whenever the survivors cover the true top-k
+    (refine high enough), results are bitwise identical to the exact
+    dispatch.  Admissible only under the planner's ``_quantized_params``
+    gate (explicit recall_target, all-segment PQ residence); a pack-time
+    codebook mismatch falls back to the exact fused scan."""
+    name = "QuantizedScanTopK"
+
+    def _collect(self, ctx: PipelineContext) -> List[List[Candidates]]:
+        from repro_torch.core import segment as seg_lib
+        g = self._gather(ctx)
+        if g is None:
+            return [[] for _ in range(ctx.nq)]
+        segs, packed, mask_all, Q = g
+        k = max(qq.k for qq in ctx.queries)
+        fp_bytes = packed.x.shape[1] * packed.x.element_size()
+        pc = seg_lib.pack_quantized(segs, ctx.queries[0].ranks[0].col,
+                                    ctx.device)
+        if pc is None:
+            # quantized residence fell behind (mixed codebooks / missing
+            # codes): exact fused scan, correctness before bandwidth
+            d2, rows = kops.fused_scan_topk(Q, packed.x, mask_all,
+                                            packed.pks, k, device=ctx.device)
+            return self._emit(ctx, segs, packed, mask_all, d2, rows,
+                              scan_row_bytes=fp_bytes)
+        refine = max((getattr(p, "refine", 0) for p in ctx.plans),
+                     default=0) or 4
+        kprime = min(kops.fs_kernel.KMAX, refine * k)
+        _, crows = kops.quantized_scan_topk(
+            Q, pc.codes, pc.codebooks, mask_all, packed.pks, kprime,
+            device=ctx.device)
+        # survivor bitmap for the exact re-rank (per query)
+        rmask = np.zeros_like(mask_all)
+        rerank_rows: List[int] = []
+        for qi in range(ctx.nq):
+            rr = crows[qi][crows[qi] >= 0]
+            rmask[qi, rr] = True
+            rerank_rows.append(len(rr))
+        d2, rows = kops.fused_scan_topk(Q, packed.x, rmask, packed.pks, k,
+                                        device=ctx.device)
+        return self._emit(ctx, segs, packed, mask_all, d2, rows,
+                          scan_row_bytes=pc.codes.shape[1],
+                          rerank_rows=rerank_rows)
 
 
 class VisibilityResolve(PhysicalOp):
@@ -984,14 +1043,15 @@ def run_scan_group(store, catalog, queries, plans, stats,
         if any(p.residual for p in plans):
             source = FilterBitmap([source])
     if is_nn:
-        # planner-chosen dispatch: fused packed kernel (one launch per
-        # batch) or staged per-segment RankScore; the executor groups by
-        # the (fused, quantized, graph) flags so a group is always
-        # homogeneous
-        if any(getattr(p, "graph", False) or getattr(p, "quantized", False)
-               for p in plans):
+        # planner-chosen dispatch: quantized ADC + exact re-rank, fused
+        # packed kernel (one launch per batch), or staged per-segment
+        # RankScore; the executor groups by the (fused, quantized, graph)
+        # flags so a group is always homogeneous
+        if any(getattr(p, "graph", False) for p in plans):
             raise NotImplementedError(_UNPORTED_DISPATCH)
-        if all(getattr(p, "fused", False) for p in plans):
+        if all(getattr(p, "quantized", False) for p in plans):
+            ranker = QuantizedScanTopK
+        elif all(getattr(p, "fused", False) for p in plans):
             ranker = FusedScanTopK
         else:
             ranker = RankScore
@@ -1029,8 +1089,8 @@ def _pred_detail(preds) -> str:
     return ",".join(one(p) for p in preds)
 
 
-_UNPORTED_DISPATCH = ("the quantized and graph NN dispatches are not "
-                      "ported yet (ROADMAP queue 1, items 7 and 8)")
+_UNPORTED_DISPATCH = ("the graph NN dispatch is not ported yet (ROADMAP "
+                      "queue 1, item 8)")
 
 
 def build_tree(plan, catalog=None) -> PhysicalOp:
@@ -1084,13 +1144,22 @@ def build_tree(plan, catalog=None) -> PhysicalOp:
         return node
 
     def ranker(node: PhysicalOp) -> PhysicalOp:
-        """RankScore (staged per-segment kernels) or FusedScanTopK (one
-        packed launch) per the plan's dispatch choice."""
+        """RankScore (staged per-segment kernels), FusedScanTopK (one
+        packed launch) or QuantizedScanTopK (ADC scan + exact re-rank) per
+        the plan's dispatch choice."""
         est = (passing / BLOCK_ROWS) * C_VECTOR_BLOCK * \
             max(1, len(plan.ranks))
-        if getattr(plan, "graph", False) or \
-                getattr(plan, "quantized", False):
+        if getattr(plan, "graph", False):
             raise NotImplementedError(_UNPORTED_DISPATCH)
+        if getattr(plan, "quantized", False):
+            d = plan.ranks[0].q.shape[0] if plan.ranks else 1
+            ratio = plan.pq_m / max(1.0, 4.0 * d)
+            return QuantizedScanTopK(
+                [node],
+                detail=(f"adc pq m={plan.pq_m} refine={plan.refine} "
+                        f"-> exact re-rank k={plan.k}"),
+                est_cost=est * ratio + plan.refine * plan.k * C_RERANK_ROW,
+                est_rows=passing)
         if plan.fused:
             return FusedScanTopK(
                 [node],

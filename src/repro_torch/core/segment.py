@@ -201,6 +201,53 @@ def pack_segments(segments: Sequence[Segment], col: str,
     return packed
 
 
+
+@dataclasses.dataclass
+class PackedCodes:
+    """Quantized sibling of ``PackedColumn``: the PQ code matrices of the
+    same segments stacked in the SAME row order as ``pack_segments``, so
+    a packed row id indexes both the fp32 superbatch and the code
+    superbatch.  The codes live on the store's device, padded like the
+    packed column (code 0 past the last row); the codebooks stay on the
+    host, where the per-query ADC tables are computed.  Only well-defined
+    when every segment carries codes from one shared codebook set (one
+    ``book_id``)."""
+    codes: torch.Tensor      # (rows, m) uint8 PQ codes
+    codebooks: np.ndarray    # (m, 256, dsub) fp32 shared codebooks
+    book_id: int
+
+
+def pack_quantized(segments: Sequence[Segment], col: str,
+                   device: torch.device) -> Optional[PackedCodes]:
+    """Stack ``col``'s PQ codes across ``segments`` onto ``device``
+    (row-aligned with ``pack_segments``, cached beside it).  Returns None
+    when any segment lacks codes or the segments' codebooks differ —
+    callers fall back to the exact path."""
+    qcols = [s.quantized.get(col) for s in segments]
+    if not qcols or any(qc is None for qc in qcols):
+        return None
+    book_id = qcols[0].book_id
+    if any(qc.book_id != book_id for qc in qcols[1:]):
+        return None
+    key = ("#codes", col, str(device)) + tuple((s.seg_id, s.content_gen)
+                                               for s in segments)
+    with _pack_lock:
+        hit = _pack_cache.get(key)
+        if hit is not None:
+            _pack_cache.move_to_end(key)
+            return hit
+    n = int(sum(s.n_rows for s in segments))
+    rows = -(-n // fs_kernel.BLOCK_N) * fs_kernel.BLOCK_N
+    codes = np.zeros((rows, qcols[0].codes.shape[1]), np.uint8)
+    codes[:n] = np.concatenate([qc.codes for qc in qcols])
+    packed = PackedCodes(codes=torch.from_numpy(codes).to(device),
+                         codebooks=qcols[0].codebooks, book_id=book_id)
+    with _pack_lock:
+        while len(_pack_cache) >= _PACK_CACHE_CAP:
+            _pack_cache.popitem(last=False)
+        _pack_cache[key] = packed
+    return packed
+
 def merge_segments(schema: Schema, segments: Sequence[Segment],
                    level: int, drop_tombstones: bool,
                    return_maps: bool = False):

@@ -2,11 +2,12 @@
 
 Each ``csrc/<name>.cu`` exposes a plain C launcher and is compiled by
 ``nvcc`` for ``sm_90a`` into its own shared library, loaded with
-``ctypes``.  Builds happen at first use (or all at once, in parallel,
-through ``build_all``) into ``_build/`` next to this file, named by a hash
-of the source and flags so an edited source is rebuilt.  Nothing is built
-or imported when the package is imported: the CPU tests import every
-module of the port on a machine without ``nvcc``.
+``ctypes``; ``csrc/*.cuh`` are headers the sources share.  Builds happen
+at first use (or all at once, in parallel, through ``build_all``) into
+``_build/`` next to this file, named by a hash of the source, the headers
+and the flags so an edited source is rebuilt.  Nothing is built or
+imported when the package is imported: the CPU tests import every module
+of the port on a machine without ``nvcc``.
 """
 from __future__ import annotations
 
@@ -22,7 +23,8 @@ from typing import Dict, List
 _HERE = Path(__file__).resolve().parent
 CSRC = _HERE / "csrc"
 BUILD_DIR = _HERE / "_build"
-SOURCES = ("fused_scan", "ivf_scan", "bitmap_filter")
+SOURCES = ("fused_scan", "ivf_scan", "bitmap_filter", "quantized_scan",
+           "pq_adc")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -35,6 +37,9 @@ SIGNATURES = {
                    [_P] * 12 + [_I, _I, _L, _I, _I, _I, _P]),
     "ivf_scan": ("ivf_scan_launch", [_P, _P, _P, _I, _I, _I, _P]),
     "bitmap_filter": ("bitmap_filter_launch", [_P, _P, _P, _L, _I, _I, _P]),
+    "quantized_scan": ("quantized_scan_topk_launch",
+                       [_P] * 12 + [_I, _I, _L, _I, _I, _I, _L, _P]),
+    "pq_adc": ("pq_adc_launch", [_P, _P, _P, _L, _I, _P]),
 }
 
 _lock = threading.Lock()
@@ -77,7 +82,10 @@ def nvcc_path() -> str:
 
 
 def _target(name: str) -> Path:
+    """The library of ``name``, named by a hash of its source, the shared
+    headers and the flags."""
     src = (CSRC / f"{name}.cu").read_bytes()
+    src += b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
     tag = hashlib.sha1(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
     return BUILD_DIR / f"{name}-{tag}.so"
 
@@ -128,6 +136,23 @@ def launcher(name: str):
     """The C launcher of kernel ``name``, building it on first use."""
     lib = _libs.get(name) or build_all([name])[name]
     return getattr(lib, SIGNATURES[name][0])
+
+
+# Shared memory one block may opt in to on compute capability 9.0, the
+# only architecture the kernels are built for (``-arch=sm_90a``).
+SM90_SMEM_OPTIN = 232_448
+
+
+def smem_per_block(device) -> int:
+    """Dynamic shared memory one block may opt in to on ``device``: the
+    wrappers refuse a launch that needs more.  A CPU tensor takes the
+    sm_90 value, so the plain path refuses what the card would."""
+    import torch
+    device = torch.device(device)
+    if device.type != "cuda":
+        return SM90_SMEM_OPTIN
+    return torch.cuda.get_device_properties(
+        device).shared_memory_per_block_optin
 
 
 def sm_count(device) -> int:

@@ -28,111 +28,21 @@
 //   pass 2: one warp per query merges the chunks' sorted lists the same
 //           way; a list is abandoned at its first entry that does not
 //           beat the current worst (everything after it is larger).
-// The order is exact: ties on d2 break by pk, then row.
+// The order is exact: ties on d2 break by pk, then row.  The list and
+// the merge pass live in topk_list.cuh, shared with quantized_scan.cu.
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "topk_list.cuh"
 
 namespace {
 
 constexpr int kBlockQ = 8;      // queries per tile (BLOCK_Q)
 constexpr int kBlockN = 512;    // rows per kept block id (BLOCK_N)
-constexpr int kK = 128;         // list capacity (KMAX)
 constexpr int kStage = 64;      // rows of x staged in shared memory
 constexpr int kDk = 64;         // features of x staged at a time
 constexpr int kThreads = 256;   // 8 warps: warp w owns query w's list
-constexpr int kSentinel = 0x7fffffff;
-constexpr unsigned kFull = 0xffffffffu;
-
-// (d, pk, row) lexicographic order; NaN sorts after every number
-__device__ __forceinline__ bool key_less(float ad, int ap, int ar,
-                                         float bd, int bp, int br) {
-  const bool an = isnan(ad), bn = isnan(bd);
-  if (an != bn) return bn;
-  if (!an && ad != bd) return ad < bd;
-  if (ap != bp) return ap < bp;
-  return ar < br;
-}
-
-// A sorted list of kK entries spread over one warp: lane l holds list
-// positions 4l .. 4l+3.
-struct WarpList {
-  float d[4];
-  int p[4];
-  int r[4];
-};
-
-__device__ __forceinline__ void list_init(WarpList& L) {
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    L.d[j] = INFINITY;
-    L.p[j] = kSentinel;
-    L.r[j] = kSentinel;
-  }
-}
-
-__device__ __forceinline__ void list_worst(const WarpList& L, float& wd,
-                                           int& wp, int& wr) {
-  wd = __shfl_sync(kFull, L.d[3], 31);
-  wp = __shfl_sync(kFull, L.p[3], 31);
-  wr = __shfl_sync(kFull, L.r[3], 31);
-}
-
-// Insert (cd, cp, cr), the same on every lane, into the sorted list; the
-// old last entry falls off.  The caller has checked that it beats it.
-__device__ __forceinline__ void list_insert(WarpList& L, float cd, int cp,
-                                            int cr, int lane) {
-  unsigned cnt = 0;
-#pragma unroll
-  for (int j = 0; j < 4; ++j)
-    cnt += key_less(L.d[j], L.p[j], L.r[j], cd, cp, cr) ? 1u : 0u;
-  const int pos = (int)__reduce_add_sync(kFull, cnt);
-  const float pd = __shfl_up_sync(kFull, L.d[3], 1);
-  const int pp = __shfl_up_sync(kFull, L.p[3], 1);
-  const int pr = __shfl_up_sync(kFull, L.r[3], 1);
-#pragma unroll
-  for (int j = 3; j >= 0; --j) {
-    const int idx = 4 * lane + j;
-    if (idx > pos) {
-      if (j > 0) {
-        L.d[j] = L.d[j - 1];
-        L.p[j] = L.p[j - 1];
-        L.r[j] = L.r[j - 1];
-      } else {
-        L.d[0] = pd;
-        L.p[0] = pp;
-        L.r[0] = pr;
-      }
-    } else if (idx == pos) {
-      L.d[j] = cd;
-      L.p[j] = cp;
-      L.r[j] = cr;
-    }
-  }
-}
-
-// Offer each lane's candidate (when `valid`) to the warp's list, lowest
-// lane first.  Returns the ballot of lanes whose candidate beat the worst
-// entry at entry, which pass 2 uses to stop early.
-__device__ __forceinline__ unsigned offer(WarpList& L, bool valid, float cd,
-                                          int cp, int cr, int lane,
-                                          float& wd, int& wp, int& wr) {
-  const unsigned first =
-      __ballot_sync(kFull, valid && key_less(cd, cp, cr, wd, wp, wr));
-  unsigned pend = first;
-  while (pend) {
-    const int src = __ffs(pend) - 1;
-    pend &= pend - 1;
-    const float bd = __shfl_sync(kFull, cd, src);
-    const int bp = __shfl_sync(kFull, cp, src);
-    const int br = __shfl_sync(kFull, cr, src);
-    if (key_less(bd, bp, br, wd, wp, wr)) {  // the same on every lane
-      list_insert(L, bd, bp, br, lane);
-      list_worst(L, wd, wp, wr);
-    }
-  }
-  return first;
-}
 
 __global__ void __launch_bounds__(kThreads)
 fused_scan_pass1(const float* __restrict__ q, const float* __restrict__ x,
@@ -218,46 +128,8 @@ fused_scan_pass1(const float* __restrict__ q, const float* __restrict__ x,
       __syncthreads();
     }
   }
-  const long long base = ((q0 + warp) * n_chunks + chunk) * kK + 4 * lane;
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    part_d[base + j] = L.d[j];
-    part_p[base + j] = L.p[j];
-    part_r[base + j] = L.r[j];
-  }
-}
-
-__global__ void fused_scan_pass2(const float* __restrict__ part_d,
-                                 const int* __restrict__ part_p,
-                                 const int* __restrict__ part_r,
-                                 float* __restrict__ out_d,
-                                 int* __restrict__ out_p,
-                                 int* __restrict__ out_r, int nq,
-                                 int n_chunks) {
-  const int lane = threadIdx.x & 31;
-  const int qi = blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
-  if (qi >= nq) return;  // the whole warp leaves together
-  WarpList L;
-  list_init(L);
-  float wd = INFINITY;
-  int wp = kSentinel, wr = kSentinel;
-  for (int c = 0; c < n_chunks; ++c) {
-    const long long base = ((long long)qi * n_chunks + c) * kK;
-    for (int j0 = 0; j0 < kK; j0 += 32) {
-      const long long at = base + j0 + lane;
-      const unsigned won = offer(L, true, part_d[at], part_p[at],
-                                 part_r[at], lane, wd, wp, wr);
-      // each list is sorted: past its first loser nothing can win
-      if (won != kFull) break;
-    }
-  }
-  const long long base = (long long)qi * kK + 4 * lane;
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    out_d[base + j] = L.d[j];
-    out_p[base + j] = L.p[j];
-    out_r[base + j] = L.r[j];
-  }
+  list_store(L, part_d, part_p, part_r,
+             ((q0 + warp) * n_chunks + chunk) * kK, lane);
 }
 
 }  // namespace
@@ -286,8 +158,6 @@ extern "C" int fused_scan_topk_launch(
       blocks_per_chunk, n_chunks);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
-  const int warps = 8;
-  fused_scan_pass2<<<(nq + warps - 1) / warps, warps * 32, 0, s>>>(
-      part_d, part_p, part_r, out_d, out_p, out_r, nq, n_chunks);
-  return (int)cudaGetLastError();
+  return (int)launch_merge_chunks(part_d, part_p, part_r, out_d, out_p,
+                                  out_r, nq, n_chunks, s);
 }

@@ -35,12 +35,36 @@ _CHUNKS_PER_SM = 4          # pass-1 blocks per SM the chunking aims at
 MAX_DIM = 4096              # the query tile (8 x d fp32) sits in shared memory
 
 
-def _chunking(n_qtiles: int, nkeep: int, device: torch.device
+def chunking(n_qtiles: int, nkeep: int, device: torch.device
               ) -> Tuple[int, int]:
     """(blocks per chunk, chunks): enough pass-1 blocks to fill the card."""
     want = max(1, -(-build.sm_count(device) * _CHUNKS_PER_SM // n_qtiles))
     per = max(1, -(-nkeep // min(want, nkeep)))
     return per, -(-nkeep // per)
+
+
+def empty_topk(nq: int, device) -> Tuple[torch.Tensor, ...]:
+    """(nq, KMAX) results with every slot empty: (+inf, SENTINEL,
+    SENTINEL)."""
+    sent = torch.full((nq, KMAX), int(SENTINEL), dtype=torch.int32,
+                      device=device)
+    return (torch.full((nq, KMAX), float("inf"), device=device), sent,
+            sent.clone())
+
+
+def launch_buffers(nq: int, nkeep: int, device):
+    """Chunking and buffers of a two-pass launch: (blocks per chunk,
+    chunks, the (nq, KMAX) outputs, the (nq, chunks, KMAX) pass-1
+    scratch), each a (d, pk, row) triple."""
+    per, chunks = chunking(nq // BLOCK_Q, nkeep, device)
+    out = (torch.empty((nq, KMAX), dtype=torch.float32, device=device),
+           torch.empty((nq, KMAX), dtype=torch.int32, device=device),
+           torch.empty((nq, KMAX), dtype=torch.int32, device=device))
+    part = (torch.empty((nq, chunks, KMAX), dtype=torch.float32,
+                        device=device),
+            torch.empty((nq, chunks, KMAX), dtype=torch.int32, device=device),
+            torch.empty((nq, chunks, KMAX), dtype=torch.int32, device=device))
+    return per, chunks, out, part
 
 
 def compact(x: torch.Tensor, mask: torch.Tensor, pks: torch.Tensor,
@@ -99,29 +123,18 @@ def fused_scan_topk(q: torch.Tensor, x: torch.Tensor, mask: torch.Tensor,
     if q.device.type not in ("cpu", "cuda"):
         raise ValueError(f"fused_scan_topk has no kernel for {q.device}")
     if nq == 0 or nkeep == 0:
-        return (torch.full((nq, KMAX), float("inf"), device=q.device),
-                torch.full((nq, KMAX), int(SENTINEL), dtype=torch.int32,
-                           device=q.device),
-                torch.full((nq, KMAX), int(SENTINEL), dtype=torch.int32,
-                           device=q.device))
+        return empty_topk(nq, q.device)
     if q.device.type == "cpu":
         return plain(q, x, mask, pks, keep)
     q, x, mask = q.contiguous(), x.contiguous(), mask.contiguous()
     pks, keep, occ = pks.contiguous(), keep.contiguous(), occ.contiguous()
     dev = q.device
-    out_d = torch.empty((nq, KMAX), dtype=torch.float32, device=dev)
-    out_p = torch.empty((nq, KMAX), dtype=torch.int32, device=dev)
-    out_i = torch.empty((nq, KMAX), dtype=torch.int32, device=dev)
-    per, chunks = _chunking(nq // BLOCK_Q, nkeep, dev)
-    part_d = torch.empty((nq, chunks, KMAX), dtype=torch.float32, device=dev)
-    part_p = torch.empty((nq, chunks, KMAX), dtype=torch.int32, device=dev)
-    part_i = torch.empty((nq, chunks, KMAX), dtype=torch.int32, device=dev)
+    per, chunks, out, part = launch_buffers(nq, nkeep, dev)
     launch = build.launcher("fused_scan")
     err = launch(q.data_ptr(), x.data_ptr(), mask.data_ptr(), pks.data_ptr(),
-                 keep.data_ptr(), occ.data_ptr(), part_d.data_ptr(),
-                 part_p.data_ptr(), part_i.data_ptr(), out_d.data_ptr(),
-                 out_p.data_ptr(), out_i.data_ptr(), nq, d, mask.shape[1],
+                 keep.data_ptr(), occ.data_ptr(),
+                 *(t.data_ptr() for t in part + out), nq, d, mask.shape[1],
                  nkeep, per, chunks, torch.cuda.current_stream(dev).cuda_stream)
     build.check(err, "fused_scan_topk")
     launches.add()
-    return out_d, out_p, out_i
+    return out

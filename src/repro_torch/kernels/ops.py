@@ -13,7 +13,8 @@ the host, shape-cache misses) is charged exactly as the JAX package
 charges it, so ``ExecStats`` compare one to one.
 
 The host-side engine calls these for all per-segment compute: distance
-scans, predicate bitmaps, the fused scan -> top-k.
+scans, PQ ADC, predicate bitmaps, the fused exact and quantized scan ->
+top-k.
 """
 from __future__ import annotations
 
@@ -27,6 +28,8 @@ import torch
 from repro_torch.kernels import bitmap_filter as bf_kernel
 from repro_torch.kernels import fused_scan as fs_kernel
 from repro_torch.kernels import ivf_scan as ivf_kernel
+from repro_torch.kernels import pq_adc as pq_kernel
+from repro_torch.kernels import quantized_scan as qs_kernel
 from repro_torch.kernels import ref
 from repro_torch.obs import REGISTRY
 
@@ -187,6 +190,18 @@ def _pad_bucket(x: np.ndarray, axis: int, value=0.0,
     return np.pad(x, widths, constant_values=value)
 
 
+def _pad_codes(codes: np.ndarray, block: int,
+               bucket: bool = True) -> np.ndarray:
+    """THE one place PQ code matrices get padded for device dispatch: row
+    pad to a ``block`` multiple (code 0 in the pad rows — masked or sliced
+    off by every consumer), optionally bucket-padded to a power of two.
+    Shared by both ``pq_adc_distances`` paths so ``stats_snapshot()``
+    charges code-block padding identically whichever ran.  Codes stay
+    uint8: the kernels read m bytes a row."""
+    cp = _pad_to(np.asarray(codes, np.uint8), block, 0)
+    return _pad_bucket(cp, 0, floor=block) if bucket else cp
+
+
 def _on(a: np.ndarray, dev: torch.device) -> torch.Tensor:
     """Upload a host array (a CPU device shares its memory)."""
     return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
@@ -282,6 +297,51 @@ def block_topk(q: np.ndarray, vecs: np.ndarray, k: int,
 
 
 # ---------------------------------------------------------------------------
+# PQ ADC
+# ---------------------------------------------------------------------------
+
+def pq_adc_distances(q: np.ndarray, codes: np.ndarray,
+                     codebooks: np.ndarray,
+                     device: Device = "cuda") -> np.ndarray:
+    """q (d,); codes (n, m) uint8; codebooks (m, 256, dsub) -> (n,) fp32."""
+    dev = resolve_device(device)
+    m, n_codes, dsub = codebooks.shape
+    qs = q.reshape(m, dsub)
+    # LUT: distance from q's subvector to every codeword (host numpy, as
+    # the JAX package computes it: a torch reduction over dsub would sum
+    # in another order)
+    lut = ((codebooks - qs[:, None, :]) ** 2).sum(axis=2)   # (m, 256)
+    if len(codes) == 0:
+        return np.zeros((0,), np.float32)
+    if dev.type == "cuda":
+        return _pq_adc_kernel(codes, lut, dev)
+    if codes.size < HOST_FLOP_CUTOFF:
+        out = np.take_along_axis(
+            lut.T, codes.astype(np.int64), axis=0).sum(axis=1) \
+            .astype(np.float32)
+        _dispatched(out.nbytes)
+        return out
+    cp = _pad_codes(codes, pq_kernel.BLOCK_N)
+    out = ref.pq_adc_ref(torch.from_numpy(cp),
+                         torch.from_numpy(np.asarray(lut, np.float32))
+                         ).numpy()
+    _dispatched(out.nbytes, "pq_adc.ref", cp.shape)
+    return out[:len(codes)]
+
+
+def _pq_adc_kernel(codes: np.ndarray, lut: np.ndarray, dev: torch.device
+                   ) -> np.ndarray:
+    """The card's path (the JAX package's Pallas branch): the code matrix
+    padded as ``_pad_codes`` pads it, one kernel launch (the plain version
+    on a CPU ``dev``)."""
+    cp = _pad_codes(codes, pq_kernel.BLOCK_N)
+    out = _host(pq_kernel.pq_adc(_on(cp, dev),
+                                 _on(np.asarray(lut, np.float32), dev)))
+    _dispatched(out.nbytes, "pq_adc.cuda", cp.shape)
+    return out[:len(codes)]
+
+
+# ---------------------------------------------------------------------------
 # predicate bitmaps
 # ---------------------------------------------------------------------------
 
@@ -331,20 +391,29 @@ def rect_filter(points: np.ndarray, rect,
 # fused masked scan -> top-k (packed cross-segment path)
 # ---------------------------------------------------------------------------
 
+def _packed_pks(pks, n: int, dev: torch.device) -> torch.Tensor:
+    """Packed pks as an int32 device tensor with rows padded to a BLOCK_N
+    multiple (SENTINEL pks); a tensor (a pack's) is taken as it is."""
+    if isinstance(pks, torch.Tensor):
+        return pks.to(dev)
+    rows = -(-n // fs_kernel.BLOCK_N) * fs_kernel.BLOCK_N
+    pkp = np.full(rows, int(fs_kernel.SENTINEL), np.int64)
+    pkp[:n] = np.asarray(pks, np.int64)[:n]
+    return _on(pkp.astype(np.int32), dev)
+
+
 def _as_packed(x, pks, n: int, dev: torch.device
                ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The packed column as device tensors with rows padded to a BLOCK_N
     multiple (zero rows, SENTINEL pks).  ``core.segment.pack_segments``
     already holds them so on the store's device; host arrays (tests) are
     uploaded here."""
-    if isinstance(x, torch.Tensor) and isinstance(pks, torch.Tensor):
-        return x.to(dev), pks.to(dev)
+    if isinstance(x, torch.Tensor):
+        return x.to(dev), _packed_pks(pks, n, dev)
     rows = -(-n // fs_kernel.BLOCK_N) * fs_kernel.BLOCK_N
     xp = np.zeros((rows, np.shape(x)[1]), np.float32)
     xp[:n] = np.asarray(x, np.float32)[:n]
-    pkp = np.full(rows, int(fs_kernel.SENTINEL), np.int64)
-    pkp[:n] = np.asarray(pks, np.int64)[:n]
-    return _on(xp, dev), _on(pkp.astype(np.int32), dev)
+    return _on(xp, dev), _packed_pks(pks, n, dev)
 
 
 def _as_host(a) -> np.ndarray:
@@ -420,16 +489,13 @@ def fused_scan_topk(q: np.ndarray, x, mask: np.ndarray, pks, k: int,
     return _fused_kernel(q, x, mask, pks, k, dev)
 
 
-def fused_kernel_args(q: np.ndarray, x, mask: np.ndarray, pks,
-                      dev: torch.device):
-    """The packed kernel's inputs on ``dev`` for one batch, and the kept
-    block ids on the host: queries padded to BLOCK_Q tiles, the bitmap
-    (rows padded with zeros), the packed column and pks, the ids of the
-    blocks some query admits, and the per-(query tile, kept block)
-    occupancy grid."""
+def _blocks_and_bitmap(mask: np.ndarray, dev: torch.device):
+    """The host prep both packed kernels share: the ids of the BLOCK_N-row
+    blocks some query admits (host), the per-(query tile, kept block)
+    occupancy grid and the bitmap with queries padded to BLOCK_Q tiles
+    (both on ``dev``)."""
     nq, n = mask.shape
     BQ, BN = fs_kernel.BLOCK_Q, fs_kernel.BLOCK_N
-    xt, pkt = _as_packed(x, pks, n, dev)
     blk = np.logical_or.reduceat(mask, np.arange(0, n, BN), axis=1)
     keep = np.nonzero(blk.any(axis=0))[0]
     nq_p = -(-nq // BQ) * BQ
@@ -437,8 +503,30 @@ def fused_kernel_args(q: np.ndarray, x, mask: np.ndarray, pks,
         .reshape(nq_p // BQ, BQ, len(keep)).any(axis=1).astype(np.int32)
     mt = torch.zeros((nq_p, n), dtype=torch.uint8, device=dev)
     mt[:nq] = _on(mask.view(np.uint8), dev)
-    return (_on(_pad_to(q, BQ, 0), dev), xt, mt, pkt,
-            _on(keep.astype(np.int32), dev), _on(occ, dev)), keep
+    return keep, _on(keep.astype(np.int32), dev), _on(occ, dev), mt
+
+
+def _kept_rows(idx: np.ndarray, keep: np.ndarray) -> np.ndarray:
+    """Kernel row ids (kept-block positions) -> rows of the packed matrix,
+    SENTINEL slots -> -1, as the JAX package's Pallas branch maps them."""
+    BN = fs_kernel.BLOCK_N
+    safe = np.minimum(idx, len(keep) * BN - 1)
+    rows = keep[safe // BN] * BN + safe % BN
+    return np.where(idx == int(fs_kernel.SENTINEL), -1, rows
+                    ).astype(np.int64)
+
+
+def fused_kernel_args(q: np.ndarray, x, mask: np.ndarray, pks,
+                      dev: torch.device):
+    """The packed kernel's inputs on ``dev`` for one batch, and the kept
+    block ids on the host: queries padded to BLOCK_Q tiles, the bitmap
+    (rows padded with zeros), the packed column and pks, the ids of the
+    blocks some query admits, and the per-(query tile, kept block)
+    occupancy grid."""
+    xt, pkt = _as_packed(x, pks, mask.shape[1], dev)
+    keep, keep_t, occ_t, mt = _blocks_and_bitmap(mask, dev)
+    return (_on(_pad_to(q, fs_kernel.BLOCK_Q, 0), dev), xt, mt, pkt,
+            keep_t, occ_t), keep
 
 
 def _fused_kernel(q: np.ndarray, x, mask: np.ndarray, pks, k: int,
@@ -458,9 +546,126 @@ def _fused_kernel(q: np.ndarray, x, mask: np.ndarray, pks, k: int,
     nb_pad = _bucket(len(keep), floor=1)
     _dispatched(d2.nbytes + 2 * idx.nbytes, "fused_scan.cuda",
                 tuple(args[0].shape) + (nb_pad * BN, args[1].shape[1]))
-    d2, idx = d2[:nq, :k], idx[:nq, :k]
     # map kept-block row ids back to rows of the caller's x
-    safe = np.minimum(idx, len(keep) * BN - 1)
-    rows = keep[safe // BN] * BN + safe % BN
-    rows = np.where(idx == int(fs_kernel.SENTINEL), -1, rows)
-    return d2, rows.astype(np.int64)
+    return d2[:nq, :k], _kept_rows(idx[:nq, :k], keep)
+
+
+# ---------------------------------------------------------------------------
+# fused quantized (PQ ADC) scan -> top-k' (candidate generation)
+# ---------------------------------------------------------------------------
+
+def adc_lut(q: np.ndarray, codebooks: np.ndarray) -> np.ndarray:
+    """Per-query ADC tables: q (nq, d); codebooks (m, 256, dsub) ->
+    (nq, m, 256) fp32 with lut[q, j, c] = ||q_sub_j - codebook_j[c]||^2.
+    Computed once per launch in host numpy, as the JAX package computes
+    it (a torch reduction over dsub would sum in another order and move
+    ADC values, and with them survivor sets at ties, by an ulp)."""
+    nq, d = q.shape
+    m, _, dsub = codebooks.shape
+    qs = np.asarray(q, np.float32).reshape(nq, m, dsub)
+    diff = codebooks[None, :, :, :] - qs[:, :, None, :]
+    return (diff * diff).sum(axis=3).astype(np.float32)
+
+
+def _as_packed_codes(codes, pks, n: int, dev: torch.device
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The packed codes and pks as device tensors with rows padded to a
+    BLOCK_N multiple (code 0, SENTINEL pks).  ``core.segment``'s packs
+    already hold them so on the store's device; host arrays (tests) are
+    uploaded here."""
+    ct = codes.to(dev) if isinstance(codes, torch.Tensor) else _on(
+        _pad_codes(np.asarray(codes)[:n], fs_kernel.BLOCK_N, bucket=False),
+        dev)
+    return ct, _packed_pks(pks, n, dev)
+
+
+def quantized_scan_topk(q: np.ndarray, codes, codebooks: np.ndarray,
+                        mask: np.ndarray, pks, k: int,
+                        device: Device = "cuda"
+                        ) -> Tuple[np.ndarray, np.ndarray]:
+    """Fused PQ-ADC candidate generation over a packed code matrix.
+
+    q (nq, d) queries; codes (>= n, m) uint8 packed PQ codes (row-aligned
+    with the fp32 superbatch; rows past n are padding); codebooks
+    (m, 256, dsub) shared books; mask (nq, n) bool; pks (>= n,) primary
+    keys.  ``codes`` and ``pks`` may be host arrays or the tensors
+    ``core.segment``'s packs keep on the store's device.  Returns (adc
+    (nq, k) fp32 ADC distances ascending, rows (nq, k) int64 row indices
+    into the packed matrix; -1 beyond a query's candidate count).  Ties
+    break by (adc, pk) so survivor sets are deterministic.
+
+    ADC distances are approximate: callers re-rank the survivors exactly
+    via ``fused_scan_topk`` with the survivor mask.
+
+    On the CPU this SIMULATES the fused kernel as the JAX package's
+    default backend does (host numpy gather in j order, one counted
+    dispatch).  On the card the host prep mirrors ``fused_scan_topk``: the
+    ids of the blocks some query admits and the occupancy grid go up, one
+    kernel launch reads the device-resident codes through the ids (m
+    bytes a row instead of 4*d)."""
+    dev = resolve_device(device)
+    q = np.asarray(q, np.float32)
+    mask = np.ascontiguousarray(mask, bool)
+    nq, n = mask.shape
+    k = int(min(k, fs_kernel.KMAX))
+    empty = (np.full((nq, k), np.inf, np.float32),
+             np.full((nq, k), -1, np.int64))
+    if n == 0 or k == 0 or not mask.any():
+        return empty
+    lut = adc_lut(q, codebooks)                     # (nq, m, 256)
+    if dev.type == "cuda":
+        return _quantized_kernel(lut, codes, mask, pks, k, dev)
+    # simulated fused ADC kernel: ONE counted dispatch; same gather
+    # arithmetic and (adc, pk) comparator as the device kernel
+    codes64 = np.asarray(_as_host(codes)[:n]).astype(np.int64)
+    adc = np.zeros((nq, n), np.float32)
+    for j in range(codes64.shape[1]):
+        adc += lut[:, j, :][:, codes64[:, j]]
+    s = np.where(mask, adc, np.inf)
+    pks64 = np.asarray(_as_host(pks)[:n], np.int64)
+    out_d = np.full((nq, k), np.inf, np.float32)
+    out_r = np.full((nq, k), -1, np.int64)
+    for qi in range(nq):
+        order = np.lexsort((pks64, s[qi]))[:k]
+        order = order[np.isfinite(s[qi][order])]
+        out_d[qi, :len(order)] = s[qi][order]
+        out_r[qi, :len(order)] = order
+    _dispatched(out_d.nbytes + out_r.nbytes)
+    return out_d, out_r
+
+
+def quantized_kernel_args(lut: np.ndarray, codes, mask: np.ndarray, pks,
+                          dev: torch.device):
+    """The quantized kernel's inputs on ``dev`` for one batch, and the kept
+    block ids on the host: the LUTs flattened to (nq, m * 256) and padded
+    to BLOCK_Q tiles, the packed codes and pks, the bitmap, the kept block
+    ids and the occupancy grid (``fused_kernel_args``' prep over codes)."""
+    nq, m, _ = lut.shape
+    ct, pkt = _as_packed_codes(codes, pks, mask.shape[1], dev)
+    keep, keep_t, occ_t, mt = _blocks_and_bitmap(mask, dev)
+    lutf = _pad_to(lut.reshape(nq, m * qs_kernel.N_CODES),
+                   fs_kernel.BLOCK_Q, 0)
+    return (_on(lutf, dev), ct, mt, pkt, keep_t, occ_t), keep
+
+
+def _quantized_kernel(lut: np.ndarray, codes, mask: np.ndarray, pks,
+                      k: int, dev: torch.device
+                      ) -> Tuple[np.ndarray, np.ndarray]:
+    """The card's path (the JAX package's Pallas branch, without its host
+    compaction): one kernel launch over the device-resident codes, (nq,
+    KMAX) results back (the plain version on a CPU ``dev``).  Nothing
+    admitted: nothing dispatched, as in the Pallas branch."""
+    nq = len(mask)
+    if not mask.any():
+        return (np.full((nq, k), np.inf, np.float32),
+                np.full((nq, k), -1, np.int64))
+    args, keep = quantized_kernel_args(lut, codes, mask, pks, dev)
+    adc, _, idx = qs_kernel.quantized_scan_topk(*args)
+    adc, idx = _host(adc), _host(idx)
+    # the Pallas branch's shape key: the padded LUTs and the kept blocks
+    # compacted into a power-of-two bucket
+    nb_pad = _bucket(len(keep), floor=1)
+    _dispatched(adc.nbytes + 2 * idx.nbytes, "quantized_scan.cuda",
+                tuple(args[0].shape) + (nb_pad * fs_kernel.BLOCK_N,
+                                        args[1].shape[1]))
+    return adc[:nq, :k], _kept_rows(idx[:nq, :k], keep)

@@ -12,7 +12,7 @@ import torch
 from repro_torch.core.lsm import LSMStore
 from repro_torch.core.types import Column, ColumnType, IndexKind, Schema
 from repro_torch.kernels import bitmap_filter, fused_scan, ivf_scan
-from repro_torch.kernels import ops
+from repro_torch.kernels import ops, pq_adc, quantized_scan
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
@@ -76,10 +76,16 @@ def test_store_raises_without_a_card(monkeypatch):
 def test_ops_raise_without_a_card(monkeypatch):
     _no_card(monkeypatch)
     x = np.ones((3, 2), np.float32)
+    books = np.zeros((2, 256, 1), np.float32)
+    codes = np.zeros((3, 2), np.uint8)
     for call in (lambda: ops.l2_distances(x, x),
                  lambda: ops.assign_nearest(x, x),
                  lambda: ops.rect_filter(x, (0, 0, 1, 1)),
-                 lambda: ops.range_bitmap(x, np.zeros((2, 2)))):
+                 lambda: ops.range_bitmap(x, np.zeros((2, 2))),
+                 lambda: ops.pq_adc_distances(x[0], codes, books),
+                 lambda: ops.quantized_scan_topk(x, codes, books,
+                                                 np.ones((3, 3), bool),
+                                                 np.arange(3), 2)):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()
     assert ops.l2_distances(x, x, device="cpu").shape == (3, 3)
@@ -88,7 +94,7 @@ def test_ops_raise_without_a_card(monkeypatch):
 def test_unported_paths_raise():
     from repro_torch.core.index import default_index_factory
     from repro_torch.core.lsm import LSMConfig
-    for kind in (IndexKind.GRAPH, IndexKind.PQIVF):
+    for kind in (IndexKind.GRAPH,):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             default_index_factory(Column("v", ColumnType.VECTOR, dim=4,
                                          index=kind))
@@ -102,21 +108,49 @@ def test_wrappers_launch_on_the_card_and_count():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernels have no CPU mode")
     dev = torch.device("cuda")
-    before = (ivf_scan.launches.value, bitmap_filter.launches.value)
+    kernels = (ivf_scan, bitmap_filter, quantized_scan, pq_adc)
+    before = [k.launches.value for k in kernels]
     q = torch.ones((8, 4), device=dev)
     ivf_scan.ivf_scan(q, q)
     bitmap_filter.bitmap_filter(q, torch.zeros((4, 2), device=dev))
+    codes = torch.zeros((512, 2), dtype=torch.uint8, device=dev)
+    pq_adc.pq_adc(codes, torch.ones((2, 256), device=dev))
+    quantized_scan.quantized_scan_topk(
+        torch.ones((8, 512), device=dev), codes,
+        torch.ones((8, 512), dtype=torch.uint8, device=dev),
+        torch.arange(512, dtype=torch.int32, device=dev),
+        torch.zeros(1, dtype=torch.int32, device=dev),
+        torch.ones((1, 1), dtype=torch.int32, device=dev))
     torch.cuda.synchronize()
-    assert (ivf_scan.launches.value, bitmap_filter.launches.value) == (
-        before[0] + 1, before[1] + 1)
+    assert [k.launches.value for k in kernels] == [b + 1 for b in before]
     assert fused_scan.launches.value >= 0
 
 
 def test_cpu_tensors_take_the_plain_versions_without_counting():
-    before = (ivf_scan.launches.value, bitmap_filter.launches.value,
-              fused_scan.launches.value)
+    kernels = (ivf_scan, bitmap_filter, fused_scan, quantized_scan, pq_adc)
+    before = [k.launches.value for k in kernels]
     q = torch.ones((8, 4))
     ivf_scan.ivf_scan(q, q)
     bitmap_filter.bitmap_filter(q, torch.zeros((4, 2)))
-    assert (ivf_scan.launches.value, bitmap_filter.launches.value,
-            fused_scan.launches.value) == before
+    codes = torch.zeros((512, 2), dtype=torch.uint8)
+    pq_adc.pq_adc(codes, torch.ones((2, 256)))
+    quantized_scan.quantized_scan_topk(
+        torch.ones((8, 512)), codes, torch.ones((8, 512), dtype=torch.uint8),
+        torch.arange(512, dtype=torch.int32),
+        torch.zeros(1, dtype=torch.int32), torch.ones((1, 1), dtype=torch.int32))
+    assert [k.launches.value for k in kernels] == before
+
+
+def test_new_wrappers_raise_for_a_device_without_a_kernel():
+    """The ADC wrappers launch for a CUDA tensor, take the plain version
+    for a CPU tensor and refuse any other device: no quiet fallback."""
+    codes = torch.zeros((512, 2), dtype=torch.uint8, device="meta")
+    with pytest.raises(ValueError, match="no kernel"):
+        pq_adc.pq_adc(codes, torch.ones((2, 256), device="meta"))
+    with pytest.raises(ValueError, match="no kernel"):
+        quantized_scan.quantized_scan_topk(
+            torch.ones((8, 512), device="meta"), codes,
+            torch.ones((8, 512), dtype=torch.uint8, device="meta"),
+            torch.zeros(512, dtype=torch.int32, device="meta"),
+            torch.zeros(1, dtype=torch.int32, device="meta"),
+            torch.ones((1, 1), dtype=torch.int32, device="meta"))

@@ -146,3 +146,44 @@ def test_ivf_compare_holds_elements_to_the_rounding_bound():
     off[1, 7] += 0.05               # well above fp32 rounding at |x|^2 ~ 1e4
     with pytest.raises(cs.SmokeFailure):
         cs.ivf_compare(q, x, off, plain)
+
+
+def test_same_bits_tells_one_ulp_apart():
+    a = torch.tensor([1.0, float("inf"), float("nan")])
+    assert cs.same_bits(a, a.clone())
+    b = a.clone()
+    b[0] = torch.nextafter(b[0], torch.tensor(2.0))
+    assert not cs.same_bits(a, b)
+    assert not cs.same_bits(a, a.double())
+    assert cs.same_bits(torch.arange(5, dtype=torch.int32),
+                        torch.arange(5, dtype=torch.int32))
+
+
+def test_survivors_maps_the_rerank_bitmap_to_pks():
+    """The survivor mask the smoke checks a quantized answer against is
+    the re-rank's bitmap over packed rows, carried to pk space."""
+    rng = np.random.default_rng(3)
+    n = 1024
+    pks = torch.from_numpy(rng.permutation(n).astype(np.int32))
+    mt = torch.zeros((8, n), dtype=torch.uint8)
+    rows = rng.choice(n, 40, replace=False)
+    mt[2, torch.from_numpy(rows)] = 1
+    adm = cs.survivors(torch.device("cpu"), (None, None, mt, pks, None, None),
+                       2, n)
+    assert sorted(torch.nonzero(adm).flatten().tolist()) == \
+        sorted(pks[torch.from_numpy(rows)].tolist())
+
+
+def test_quantized_templates_pair_each_draw_with_its_exact_twin():
+    data = cs.TracyData(8, seed=4)
+    data.batch(0, 50)
+    data.finish()
+    gt = cs.quantized_templates(cs.templates(data))
+    for name in ("g6", "g8", "g13"):
+        quant, exact, mask_fn, spec = gt[name]()
+        assert quant.recall_target == cs.RECALL_TARGET
+        assert exact.recall_target is None and quant.k == exact.k
+        assert quant.where is exact.where
+        np.testing.assert_array_equal(quant.ranks[0].q, exact.ranks[0].q)
+        np.testing.assert_array_equal(spec[1], exact.ranks[0].q)
+        assert (mask_fn is None) == (name == "g6")

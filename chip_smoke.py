@@ -1,10 +1,10 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (``src/repro_torch``) on one GPU.
 
-1. Builds the five hand-written CUDA kernels from
+1. Builds the hand-written CUDA kernels from
    ``src/repro_torch/kernels/csrc`` (one ``nvcc`` per source, in parallel)
    and holds each against its plain PyTorch version at edge shapes (the two
-   ADC kernels bitwise).
+   ADC kernels, the two merges and the beam search bitwise).
 2. Drives the port's main path: one TRACY tweet store (128-d embeddings,
    IVF / ZORDER / INVERTED / BTREE indexes, flush_rows 2048, fanout 4,
    pq_m 8) filled through ``LSMStore.put``/``flush`` on the card, then the
@@ -31,9 +31,20 @@
    ``IndexKind.PQIVF``, 20 t6- and 20 t8-shape queries through
    ``Executor.execute`` with a forced ``postfilter_nn`` plan; every
    returned distance against float64, recall@10 against a brute force.
-6. Holds each kernel against its plain version on the inputs the paths
-   gave it, times both and one PyTorch library call, traces one more t6,
-   g6 and t2 batch for the device's busy share, and prints one JSON line
+6. The sharded path: a 4-shard ``ShardRouter`` of the same shape holding
+   1,048,576 rows, t6, t8, t10, t13, t2, t4 through
+   ``ShardedExecutor.execute_many`` (21 batches of 8 each), every answer
+   checked as in 3, one cross-shard merge launch per NN batch.
+7. The graph path: a GRAPH store of 8,192 rows in 8 segments, g6, g8, g13
+   at recall_target 0.95 through ``Executor.execute_many`` (21 batches of
+   8 each, planned by the planner alone), each answer held against the
+   float64 top-k over the beam's survivors, ``rows_scanned`` against the
+   visited words' popcount; recall@10 against the exact dispatch and a
+   widened beam against it bitwise, printed.
+8. Holds each kernel against its plain version on the inputs the paths
+   gave it, times both and one PyTorch library call where one computes
+   the same function, traces one more t6, g6 and t2 batch and one sharded
+   t6 batch for the device's busy share, and prints one JSON line
    ``{"kernels": [...]}``; the last line is
    ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}``.
 
@@ -42,6 +53,7 @@ every kernel of the path must have launched.
 
     python3 chip_smoke.py                   # the full run (one GPU)
     python3 chip_smoke.py --phase kernels   # build + edge checks only
+    python3 chip_smoke.py --phase sharded   # or main | graph: one path
 
 Any failing phase exits non-zero without the ``ok`` line.
 """
@@ -62,6 +74,11 @@ ROWS = 2_097_152                  # one fully compacted 2 M-row segment
 PQIVF_ROWS = 262_144              # the IVF-PQ store (cut further: ingest
 #                                   builds 8 k-means codebooks per flush)
 RECALL_TARGET = 0.9               # the quantized templates' recall target
+SHARDED_ROWS = 1_048_576          # the sharded store (cut for the run's time)
+N_SHARDS = 4
+GRAPH_ROWS = 8_192                # the GRAPH store: the repo's graph study
+GRAPH_FLUSH = 1_024               # 8 segments of 1,024 rows
+GRAPH_RECALL = 0.95               # the graph templates' recall target
 BATCHES = 21                      # per template: the first, then 20 timed
 FP32_U = 2.0 ** -24               # fp32 unit roundoff
 HBM_BYTES_PER_S = 3.35e12         # H100 SXM, NVIDIA data sheet
@@ -79,6 +96,12 @@ SOURCES = {
                             "src/repro/kernels/quantized_scan.py:86"),
     "pq_adc": ("src/repro_torch/kernels/csrc/pq_adc.cu",
                "src/repro/kernels/pq_adc.py:36"),
+    "batched_topk_merge": ("src/repro_torch/kernels/csrc/topk_merge.cu",
+                           "src/repro/kernels/topk_merge.py:96"),
+    "graph_search_topk": ("src/repro_torch/kernels/csrc/graph_search.cu",
+                          "src/repro/kernels/graph_search.py:144"),
+    "topk_merge": ("src/repro_torch/kernels/csrc/topk_merge.cu",
+                   "src/repro/kernels/topk_merge.py:38"),
 }
 
 
@@ -95,22 +118,37 @@ def log(*a) -> None:
     print(*a, flush=True)
 
 
-def kernel_modules():
-    """Each hand-written kernel's wrapper module, by the kernel's name."""
-    from repro_torch.kernels import (bitmap_filter, fused_scan, ivf_scan,
-                                     pq_adc, quantized_scan)
-    return {"fused_scan_topk": fused_scan, "ivf_scan": ivf_scan,
-            "bitmap_filter": bitmap_filter,
-            "quantized_scan_topk": quantized_scan, "pq_adc": pq_adc}
+def kernel_counts():
+    """Each hand-written kernel's launch count, by the kernel's name."""
+    from repro_torch.kernels import (bitmap_filter, fused_scan, graph_search,
+                                     ivf_scan, pq_adc, quantized_scan,
+                                     topk_merge)
+    return {"fused_scan_topk": fused_scan.launches,
+            "ivf_scan": ivf_scan.launches,
+            "bitmap_filter": bitmap_filter.launches,
+            "quantized_scan_topk": quantized_scan.launches,
+            "pq_adc": pq_adc.launches,
+            "batched_topk_merge": topk_merge.batched_launches,
+            "graph_search_topk": graph_search.launches,
+            "topk_merge": topk_merge.launches}
 
 
 def counts():
-    return {n: m.launches.value for n, m in kernel_modules().items()}
+    return {n: c.value for n, c in kernel_counts().items()}
 
 
 def reset_counts() -> None:
-    for m in kernel_modules().values():
-        m.launches.reset()
+    for c in kernel_counts().values():
+        c.reset()
+
+
+def add_counts(total: dict) -> dict:
+    """Add the launch counts since the last reset to ``total``; returns
+    them."""
+    c = counts()
+    for k, v in c.items():
+        total[k] += v
+    return c
 
 
 def same_bits(a, b) -> bool:
@@ -142,6 +180,37 @@ def cuda_ms(fn, reps: int = 20, warm: int = 3) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def kernel_ms(fn, kernel: str, reps: int = 20, warm: int = 3) -> float:
+    """Mean device time of the kernel named ``kernel`` over ``reps`` calls
+    of ``fn``, from a ``torch.profiler`` trace: the kernel's own time,
+    without the wrapper's allocations and the host's launch cost that a
+    few-microsecond kernel's CUDA-event time is mostly made of.  Fails if
+    the trace holds no launch of it."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(warm):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    spans = [e.time_range.end - e.time_range.start for e in prof.events()
+             if getattr(e, "device_type", None) == DeviceType.CUDA
+             and kernel in e.name]
+    check(len(spans) == reps, f"the trace holds {len(spans)} launches of "
+          f"{kernel}, not {reps}")
+    return sum(spans) / reps / 1e3
+
+
+def row_bound(nbytes: float, flops: float):
+    """(bound ms, what bounds it) for work of ``nbytes`` and ``flops``."""
+    tb, tf = nbytes / HBM_BYTES_PER_S, flops / FP32_FLOPS
+    return max(tb, tf) * 1e3, ("bytes" if tb >= tf else "operations")
 
 
 def round_bound(d: int, m: float, d2max: float) -> float:
@@ -443,6 +512,150 @@ def adc_edge_checks(dev, errs) -> None:
     errs["quantized_scan_topk"] = errs["pq_adc"] = 0.0
 
 
+def merge_case(rng, nq, s, kk, kind):
+    """Candidate lists for the merges: scores with ``ties`` (few distinct
+    values, so ids and positions break them) or ``pads`` (+inf slots with
+    SENTINEL ids), ids a permutation."""
+    from repro_torch.kernels import ref
+    d = rng.uniform(0, 10, (nq, s, kk)).astype(np.float32)
+    if kind == "ties":
+        d = np.floor(d / 3).astype(np.float32)
+    ids = rng.permutation(nq * s * kk).reshape(nq, s, kk).astype(np.int64)
+    if kind == "pads":
+        pad = rng.random((nq, s, kk)) < 0.4
+        d[pad] = np.inf
+        ids[pad] = ref.SENTINEL
+    return d, ids
+
+
+def merge_edge_checks(dev) -> None:
+    """The two merge kernels against their plain versions, bitwise, on
+    the card and on the host: ties on score, +inf pads, k = 1, k = s * kk,
+    k > 128 (k = 300), s = 1, and lists too long for shared memory (the
+    kernel reads them from global memory); the single-list merge with
+    int32 and int64 ids."""
+    import torch
+    from repro_torch.kernels import ref, topk_merge
+    rng = np.random.default_rng(2)
+    host = torch.device("cpu")
+    for nq, s, kk, k, kind in [(4, 3, 6, 5, "ties"), (8, 4, 10, 10, "pads"),
+                               (8, 4, 10, 1, "plain"), (8, 4, 10, 40, "ties"),
+                               (8, 4, 300, 300, "ties"), (5, 1, 7, 7, "pads"),
+                               (3, 8, 8000, 200, "ties"),
+                               (2, 2, 3, 6, "pads")]:
+        d, ids = merge_case(rng, nq, s, kk, kind)
+        dt = torch.from_numpy(d).to(dev)
+        it = torch.from_numpy(ids.astype(np.int32)).to(dev)
+        out = topk_merge.batched_topk_merge(dt, it, k)
+        torch.cuda.synchronize()
+        for where, want in (("card", ref.batched_topk_merge_ref(dt, it, k)),
+                            ("host", ref.batched_topk_merge_ref(
+                                dt.to(host), it.to(host), k))):
+            check(same_bits(out[0], want[0]) and same_bits(out[1], want[1]),
+                  f"batched_topk_merge differs from the plain version on "
+                  f"the {where} (nq={nq} s={s} kk={kk} k={k} {kind})")
+        log(f"edge batched_topk_merge nq={nq} s={s} kk={kk} k={k} {kind}: "
+            f"bitwise equal to the plain version (card and host)")
+        for id_type in (torch.int32, torch.int64):
+            d1 = dt[0]
+            i1 = torch.from_numpy(ids[0]).to(dev, id_type)
+            k1 = min(k, d1.numel())
+            out = topk_merge.topk_merge(d1, i1, k1)
+            torch.cuda.synchronize()
+            want = ref.topk_merge_ref(d1.to(host), i1.to(host), k1)
+            check(same_bits(out[0], want[0]) and same_bits(out[1], want[1]),
+                  f"topk_merge differs from the plain version (s={s} "
+                  f"kk={kk} k={k1} {kind} {id_type})")
+        log(f"edge topk_merge s={s} kk={kk} k={min(k, s * kk)} {kind}: "
+            f"bitwise equal to the plain version (int32 and int64 ids)")
+
+
+def graph_case(rng, nq, n, d, r_deg, n_ent, kind):
+    """A random packed CSR case as the wrapper takes it: ``ints`` draws
+    small-integer vectors (every sum exact) and pks with duplicates
+    ((d2, pk) ties that break by position), ``floats`` normal vectors;
+    a quarter of the adjacency is -1 padding; query 0 admits no row."""
+    from repro_torch.kernels import ref
+    if kind == "ints":
+        q = rng.integers(-3, 4, (nq, d)).astype(np.float32)
+        x = rng.integers(-3, 4, (n, d)).astype(np.float32)
+        pks = (np.arange(n, dtype=np.int32) // 3)[None, :]
+    else:
+        q = rng.normal(size=(nq, d)).astype(np.float32)
+        x = rng.normal(size=(n, d)).astype(np.float32)
+        pks = (np.arange(n, dtype=np.int32) * 7 + 3)[None, :]
+    nbr = rng.integers(0, n, (n, r_deg)).astype(np.int32)
+    nbr[rng.random((n, r_deg)) < 0.25] = -1
+    mask = (rng.random((nq, n)) < 0.3).astype(np.uint8)
+    mask[0] = 0
+    ent = np.full((1, max(8, n_ent)), ref.SENTINEL, np.int32)
+    ent[0, :n_ent] = rng.choice(n, n_ent, replace=False)
+    return q, x, nbr, ent, mask, pks
+
+
+def graph_compare(out, plain, what: str) -> None:
+    for a, b, name in zip(out, plain, ("d2", "pks", "rows", "visited")):
+        check(same_bits(a, b), f"graph_search_topk {name} differ from the "
+              f"plain version ({what})")
+
+
+def graph_edge_checks(dev) -> None:
+    """The beam-search kernel against its plain version, all four outputs
+    bitwise, on the card and on the host: exact-sum and random inputs,
+    -1 padding, an all-masked query, entries > beam, hops = 0, the
+    widest beam, 2,097,152 rows (256 KB of visited words per query in
+    global memory, 64-bit row offsets, on a random CSR that needs no
+    graph build); and through ``ops`` at a row count that is not a
+    multiple of 32 against the same host logic over the plain version."""
+    import torch
+    from repro_torch.kernels import graph_search, ops, ref
+    rng = np.random.default_rng(3)
+    host = torch.device("cpu")
+    for nq, n, d, r_deg, beam, hops, n_ent, kind in [
+            (8, 512, 16, 8, 32, 4, 5, "ints"),
+            (8, 1024, 16, 16, 64, 4, 5, "floats"),
+            (16, 512, 12, 4, 40, 4, 5, "ints"),
+            (8, 512, 12, 8, 8, 3, 20, "floats"),
+            (8, 512, 16, 8, 8, 0, 5, "ints"),
+            (8, 8192, 128, 16, 128, 12, 136, "floats"),
+            (8, 2097152, 128, 16, 40, 8, 5, "floats")]:
+        args = [torch.from_numpy(a) for a in graph_case(
+            rng, nq, n, d, r_deg, n_ent, kind)]
+        dargs = [a.to(dev) for a in args]
+        out = graph_search.graph_search_topk(*dargs, beam, hops)
+        torch.cuda.synchronize()
+        what = (f"nq={nq} n={n} d={d} R={r_deg} beam={beam} hops={hops} "
+                f"entries={n_ent} {kind}")
+        graph_compare(out, ref.graph_search_topk_ref(*dargs, beam, hops),
+                      what + ", card")
+        graph_compare(out, ref.graph_search_topk_ref(*args, beam, hops),
+                      what + ", host")
+        check(bool((out[2][0] == ref.SENTINEL).all()),
+              "the all-masked query has a result")
+        gathered = int(np.unpackbits(out[3].cpu().numpy().view(np.uint8),
+                                     axis=1).sum())
+        log(f"edge graph_search_topk {what}: d2, pks, rows and visited words "
+            f"bitwise equal to the plain version (card and host); "
+            f"{gathered} rows gathered")
+    q, x, nbr, ent, mask, pks = graph_case(rng, 5, 700, 16, 8, 6, "floats")
+    mask = mask.astype(bool)
+    for beam, hops in ((24, 6), (128, 12)):
+        got = ops.graph_search_topk(q, x, nbr, ent[0, :6], mask, pks[0],
+                                    beam, hops, device=dev)
+        want = ops._graph_kernel(q, x, nbr, ent[0, :6].astype(np.int64),
+                                 mask, pks[0].astype(np.int64), beam, hops,
+                                 host)
+        check(all(np.array_equal(np.asarray(a).view(np.uint32)
+                                 if a.dtype == np.float32 else a,
+                                 np.asarray(b).view(np.uint32)
+                                 if b.dtype == np.float32 else b)
+                  for a, b in zip(got, want)),
+              f"ops.graph_search_topk n=700 beam={beam} differs from the "
+              f"plain version")
+        log(f"edge ops.graph_search_topk n=700 beam={beam} hops={hops}: "
+            f"d2, rows and gathered equal to the plain version")
+
+
 # ---------------------------------------------------------------------------
 # phase 2: the main path
 # ---------------------------------------------------------------------------
@@ -583,14 +796,19 @@ def brute_nn(dev, xs, mask, qv, k, res):
     return tie_aware(f, fp, ex[:len(fp)], td, tp, tol), tol / td[-1]
 
 
-def tracy_store(dev, data: TracyData, rows: int, vector_index: str):
+def tracy_store(dev, data: TracyData, rows: int, vector_index: str,
+                flush_rows: int = 2048, fanout: int = 4,
+                quantize: bool = True, shards: int = 0):
     """The TRACY tweet table (``benchmarks/tracy.py``'s schema at its
     published widths: 128-d embeddings with ``vector_index``, ZORDER
-    points, INVERTED text, BTREE time and likes; flush_rows 2048, fanout
-    4, pq_m 8) filled with ``rows`` rows through ``LSMStore.put`` and
-    ``flush`` on ``dev``.  Returns (store, ingest seconds)."""
+    points, INVERTED text, BTREE time and likes; by default flush_rows
+    2048, fanout 4, pq_m 8) filled with ``rows`` rows through ``put`` and
+    ``flush`` on ``dev``, in batches of at most ``flush_rows`` (as
+    ``tracy.build_store`` feeds it): one ``LSMStore``, or with ``shards``
+    a ``ShardRouter`` of that many.  Returns (store, ingest seconds)."""
     import torch
     from repro_torch.core.lsm import LSMConfig, LSMStore
+    from repro_torch.core.shards import ShardRouter
     from repro_torch.core.types import Column, ColumnType, IndexKind, Schema
     schema = Schema([
         Column("embedding", ColumnType.VECTOR, dim=data.dim,
@@ -599,12 +817,14 @@ def tracy_store(dev, data: TracyData, rows: int, vector_index: str):
         Column("content", ColumnType.TEXT, index=IndexKind.INVERTED),
         Column("time", ColumnType.SCALAR, index=IndexKind.BTREE),
         Column("likes", ColumnType.SCALAR, index=IndexKind.BTREE)])
+    cfg = LSMConfig(flush_rows=flush_rows, fanout=fanout, pq_m=8,
+                    quantize_vectors=quantize)
     t0 = time.perf_counter()
-    store = LSMStore(schema, LSMConfig(flush_rows=2048, fanout=4, pq_m=8),
-                     device=dev)
+    store = ShardRouter(schema, cfg, n_shards=shards, device=dev) if shards \
+        else LSMStore(schema, cfg, device=dev)
     done = 0
     while done < rows:
-        n = min(2048, rows - done)
+        n = min(2048, flush_rows, rows - done)
         pks, batch = data.batch(done, n)
         store.put(pks, batch)
         done += n
@@ -679,18 +899,19 @@ def main_path(dev, record):
     return total, {"ex": ex, "tmpl": tmpl, "xs": xs}
 
 
-def quantized_templates(tmpl):
+def quantized_templates(tmpl, recall_target: float = RECALL_TARGET):
     """TRACY's recall-targeted NN templates g6 (pure NN), g8 (NN + time
-    range), g13 (disjunctive NN): t6, t8, t13 with recall_target 0.9.  Each
-    draw returns (quantized query, its exact twin of the same draw,
-    brute-force mask function, rank spec)."""
+    range), g13 (disjunctive NN): t6, t8, t13 with a recall_target
+    (``tracy.make_graph_templates``).  Each draw returns (targeted query,
+    its exact twin of the same draw, brute-force mask function, rank
+    spec)."""
     from repro_torch.core import query as q
 
     def make(tname):
         def g():
             exact, mask_fn, spec = tmpl[tname]()
             quant = q.HybridQuery(where=exact.where, ranks=exact.ranks,
-                                  k=exact.k, recall_target=RECALL_TARGET)
+                                  k=exact.k, recall_target=recall_target)
             return quant, exact, mask_fn, spec
         return g
     return {"g6": make("t6"), "g8": make("t8"), "g13": make("t13")}
@@ -725,8 +946,7 @@ def quantized_path(dev, record, ctx) -> dict:
         reset_counts()
         out = ex.execute_many(qs, plans=plans)
         torch.cuda.synchronize()
-        for k, v in counts().items():
-            total[k] += v
+        add_counts(total)
         return out
 
     for name in ("g6", "g8", "g13"):
@@ -867,6 +1087,195 @@ def pqivf_path(dev) -> dict:
     return counts()
 
 
+def sharded_path(dev, record):
+    """The sharded store: a 4-shard ``ShardRouter`` of TRACY's shape
+    filled with SHARDED_ROWS rows, then t6, t8, t10, t13, t2 and t4
+    through ``ShardedExecutor.execute_many``, 21 batches of 8 each, every
+    answer held against the float64 brute force (NN) or numpy (filters)."""
+    import torch
+    from repro_torch.core.shards import ShardedExecutor
+    dim, rows = 128, SHARDED_ROWS
+    log(f"sharded path: TRACY tweet table over {N_SHARDS} shards, {rows} "
+        f"rows (paper: {PAPER_ROWS}; cut for the run's time), dim={dim} "
+        f"flush_rows=2048 fanout=4 pq_m=8 per shard")
+    data = TracyData(dim, seed=2)
+    total = dict.fromkeys(SOURCES, 0)
+    reset_counts()
+    router, ingest_s = tracy_store(dev, data, rows, "IVF", shards=N_SHARDS)
+    ingest = add_counts(total)
+    log(f"sharded ingest: {ingest_s:.2f} s, rows per shard "
+        f"{router.shard_rows()}, segments per shard "
+        f"{[[s.n_rows for s in sh.segments] for sh in router.shards]}, "
+        f"launches {ingest}")
+    ex = ShardedExecutor(router)
+    tmpl = templates(data)
+    xs = {dim: torch.from_numpy(data.cols["embedding"]).to(dev, torch.float64),
+          2: torch.from_numpy(data.cols["coordinate"]).to(dev, torch.float64)}
+    nn_batches = 0
+    for name in ("t6", "t8", "t10", "t13", "t2", "t4"):
+        before = dict(total)
+        times, swaps, checked, head = [], 0, 0, ""
+        for _ in range(BATCHES):
+            made = [tmpl[name]() for _ in range(8)]
+            record["template"] = f"sharded {name}"
+            reset_counts()
+            t1 = time.perf_counter()
+            out = ex.execute_many([m[0] for m in made])
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t1) * 1e3)
+            c = add_counts(total)
+            record["template"] = None
+            head = out[0][1].plan.splitlines()[0]
+            nn = made[0][2] is not None
+            nn_batches += nn
+            check(c["batched_topk_merge"] == int(nn),
+                  f"sharded {name}: {c['batched_topk_merge']} merge "
+                  f"launches in one batch")
+            for (qq, mask_fn, spec), (res, st) in zip(made, out):
+                check(st.shards == N_SHARDS, f"sharded {name}: shards "
+                      f"{st.shards}")
+                mask = mask_fn() if mask_fn is not None else None
+                checked += 1
+                if spec is None:
+                    check(st.merge_rows == 0, "a filter query merged")
+                    want = set(np.nonzero(mask)[0].tolist())
+                    got = {r.pk for r in res}
+                    check(got == want, f"sharded {name}: filter answer "
+                          f"differs ({len(got)} vs {len(want)} rows)")
+                    continue
+                check(0 < st.merge_rows <= N_SHARDS * qq.k,
+                      f"sharded {name}: merge_rows {st.merge_rows}")
+                swaps += brute_nn(dev, xs, mask, spec[1], qq.k, res)[0]
+        delta = {k: v - before[k] for k, v in total.items()}
+        rest = np.asarray(times[1:])
+        log(f"sharded query {name}: {head.split(' ')[0]} "
+            f"first_batch_ms={times[0]:.3f} p50_batch_ms="
+            f"{np.median(rest):.3f} (of the next {len(rest)} batches of 8; "
+            f"min {rest.min():.3f} max {rest.max():.3f}) launches {delta}; "
+            f"{checked} answers checked, tie swaps {swaps}")
+    check(total["batched_topk_merge"] == nn_batches,
+          f"sharded path: {total['batched_topk_merge']} merge launches for "
+          f"{nn_batches} NN batches")
+    log(f"sharded path: one batched_topk_merge launch per NN batch "
+        f"({nn_batches}); every answer agrees")
+    return total, {"ex": ex, "tmpl": tmpl}
+
+
+def popcounts(vis) -> np.ndarray:
+    """Rows set in each query's visited words."""
+    v = np.ascontiguousarray(vis.cpu().numpy())
+    return np.unpackbits(v.view(np.uint8), axis=1).sum(axis=1)
+
+
+def graph_path(dev, record):
+    """The graph dispatch: a GRAPH store of GRAPH_ROWS rows in 8 segments
+    (the repo's graph study, ``benchmarks/hybrid_latency.py``), TRACY's
+    recall-targeted templates at recall_target 0.95 through
+    ``Executor.execute_many``, 21 batches of 8 each, planned by the
+    planner alone.  Each answer is held against the float64 top-k over the
+    survivors the beam search kept (the exact re-rank), ``rows_scanned``
+    against the visited words' popcount; recall@10 against the exact
+    dispatch and a widened beam (128, 12 hops) are printed."""
+    import torch
+    from repro_torch.core.executor import Executor
+    dim, rows = 128, GRAPH_ROWS
+    log(f"graph path: TRACY tweet table with embedding GRAPH, {rows} rows "
+        f"in {rows // GRAPH_FLUSH} segments (the size of the repo's graph "
+        f"study, bounded by the host graph build), dim={dim} flush_rows="
+        f"{GRAPH_FLUSH} fanout=32, no PQ tier")
+    data = TracyData(dim, seed=3)
+    total = dict.fromkeys(SOURCES, 0)
+    reset_counts()
+    store, ingest_s = tracy_store(dev, data, rows, "GRAPH",
+                                  flush_rows=GRAPH_FLUSH, fanout=32,
+                                  quantize=False)
+    ingest = add_counts(total)
+    log(f"graph ingest: {ingest_s:.2f} s, segments "
+        f"{[s.n_rows for s in store.segments]}, launches {ingest}")
+    ex = Executor(store)
+    gt = quantized_templates(templates(data), GRAPH_RECALL)
+    xs = {dim: torch.from_numpy(data.cols["embedding"]).to(dev, torch.float64)}
+    n = rows
+
+    def graph_run(qs, plans=None):
+        """One graph ``execute_many``, its launches counted from 0 just
+        before it to just after it: one beam search and one re-rank."""
+        reset_counts()
+        out = ex.execute_many(qs, plans=plans)
+        torch.cuda.synchronize()
+        c = add_counts(total)
+        check(c["graph_search_topk"] == 1 and c["fused_scan_topk"] == 1,
+              f"graph batch launched {c['graph_search_topk']} beam searches "
+              f"and {c['fused_scan_topk']} re-ranks")
+        return out
+
+    for name in ("g6", "g8", "g13"):
+        times, swaps, recalls, gathered = [], 0, [], []
+        heads = set()
+        for _ in range(BATCHES):
+            made = [gt[name]() for _ in range(8)]
+            record["template"] = f"graph {name}"
+            t1 = time.perf_counter()
+            out = graph_run([m[0] for m in made])
+            times.append((time.perf_counter() - t1) * 1e3)
+            record["template"] = None
+            rerank = record["fused_last"]
+            pop = popcounts(record["graph"][-1][1][3])
+            exact = ex.execute_many([m[1] for m in made])
+            for qi, ((qq, _, mask_fn, spec), (res, st), (eres, _)) in \
+                    enumerate(zip(made, out, exact)):
+                head = st.plan.splitlines()[0]
+                heads.add(head.split("(")[0] + " "
+                          + head[head.index("dispatch="):].rstrip(")"))
+                check("dispatch=graph" in head, f"{name}: planned {head}")
+                filtered = mask_fn is not None
+                # rows_scanned: the walk's gathered rows, plus the rows a
+                # residual filter scanned (none on these plans)
+                check(st.rows_scanned == int(pop[qi]),
+                      f"{name}: rows_scanned {st.rows_scanned}, popcount "
+                      f"{int(pop[qi])}")
+                gathered.append(int(pop[qi]))
+                keys = [(r.score, r.pk) for r in res]
+                check(keys == sorted(keys), f"{name}: answer order")
+                adm = survivors(dev, rerank, qi, n)
+                check(st.rerank_rows == int(adm.sum()),
+                      f"{name}: rerank_rows {st.rerank_rows}")
+                if filtered:
+                    check(bool(torch.from_numpy(mask_fn()).to(dev)[adm]
+                               .all()), f"{name}: a survivor fails the "
+                          f"filter")
+                swaps += brute_nn(dev, xs, adm, spec[1], qq.k, res)[0]
+                want = {r.pk for r in eres}
+                recalls.append(len({r.pk for r in res} & want)
+                               / max(1, len(want)))
+        rest = np.asarray(times[1:])
+        log(f"graph query {name} (recall_target={GRAPH_RECALL}): "
+            f"plans {sorted(heads)}; first_batch_ms={times[0]:.3f} "
+            f"p50_batch_ms={np.median(rest):.3f} (of the next {len(rest)} "
+            f"batches of 8; min {rest.min():.3f} max {rest.max():.3f}); "
+            f"{len(recalls)} answers held against the float64 top-k over "
+            f"their survivors, tie swaps {swaps}; rows gathered per query "
+            f"median {int(np.median(gathered))} of {n}; recall@10 against "
+            f"the exact dispatch {np.mean(recalls):.4f}")
+    same = 0
+    for _ in range(3):
+        made = [gt["g6"]() for _ in range(8)]
+        plans = [ex.plan(m[0]) for m in made]
+        for p in plans:
+            p.graph_beam, p.graph_hops = 128, 12
+        wide = graph_run([m[0] for m in made], plans)
+        exact = ex.execute_many([m[1] for m in made])
+        same += sum([(r.pk, r.score) for r in a] == [(r.pk, r.score)
+                                                     for r in b]
+                    for (a, _), (b, _) in zip(wide, exact))
+    log(f"g6 at beam=128 hops=12: {same} of 24 answers bitwise the exact "
+        f"dispatch's")
+    check(total["graph_search_topk"] == total["fused_scan_topk"],
+          f"graph path: {total['graph_search_topk']} beam searches, "
+          f"{total['fused_scan_topk']} re-ranks")
+    return total, {"ex": ex, "gt": gt}
+
+
 # ---------------------------------------------------------------------------
 # phase 3: kernels on the main path's inputs
 # ---------------------------------------------------------------------------
@@ -874,14 +1283,20 @@ def pqivf_path(dev) -> dict:
 def install_recorder(record):
     """Keep the inputs the paths hand each kernel wrapper (one set per
     template for the two scans, the last fused call apart, one per shape
-    for the others).  A ``template`` of None records no scan inputs."""
-    from repro_torch.kernels import (bitmap_filter, fused_scan, ivf_scan,
-                                     pq_adc, quantized_scan)
+    for ivf_scan, bitmap_filter and pq_adc, every call of the merge and
+    the beam search, the beam search's outputs too).  A
+    ``template`` of None records no scan inputs."""
+    from repro_torch.kernels import (bitmap_filter, fused_scan, graph_search,
+                                     ivf_scan, pq_adc, quantized_scan,
+                                     topk_merge)
     orig = {"fused": fused_scan.fused_scan_topk, "ivf": ivf_scan.ivf_scan,
             "bitmap": bitmap_filter.bitmap_filter,
             "quantized": quantized_scan.quantized_scan_topk,
-            "pq": pq_adc.pq_adc}
-    record.update(fused={}, quantized={}, ivf={}, bitmap={}, pq={})
+            "pq": pq_adc.pq_adc, "merge": topk_merge.batched_topk_merge,
+            "graph": graph_search.graph_search_topk,
+            "topk": topk_merge.topk_merge}
+    record.update(fused={}, quantized={}, ivf={}, bitmap={}, pq={},
+                  merge=[], graph=[])
 
     def per_template(kind):
         def rec(*a):
@@ -903,6 +1318,17 @@ def install_recorder(record):
             return orig[kind](x, y)
         return rec
 
+    def merge(d, i, k):
+        record["merge"].append((d.clone(), i.clone(), k))
+        return orig["merge"](d, i, k)
+
+    def graph(*a):
+        out = orig["graph"](*a)
+        record["graph"].append((a, out))
+        return out
+
+    topk_merge.batched_topk_merge = merge
+    graph_search.graph_search_topk = graph
     fused_scan.fused_scan_topk = per_template("fused")
     quantized_scan.quantized_scan_topk = per_template("quantized")
     ivf_scan.ivf_scan = per_shape("ivf")
@@ -911,11 +1337,11 @@ def install_recorder(record):
     return orig
 
 
-def measure(record, orig, launches, errs):
+def measure(record, orig, launches, errs, dev):
     import torch
     from repro_torch.kernels import ref
     out = []
-    # fused scan: every template's main-path call, the full scan timed
+    # fused scan: every template's call on the paths, each timed
     fs_rows = {}
     for tname, a in record["fused"].items():
         kout = orig["fused"](*a)
@@ -938,9 +1364,7 @@ def measure(record, orig, launches, errs):
             dd = torch.where(mk.bool(), dd, torch.full_like(dd, float("inf")))
             return torch.topk(dd, 128, dim=1, largest=False)
         l_ms = cuda_ms(library, reps=5, warm=1)
-        bound = max(nbytes / HBM_BYTES_PER_S, flops / FP32_FLOPS) * 1e3
-        by = "bytes" if nbytes / HBM_BYTES_PER_S >= flops / FP32_FLOPS \
-            else "operations"
+        bound, by = row_bound(nbytes, flops)
         fs_rows[tname] = (k_ms, p_ms, bound, by, l_ms)
         log(f"kernel fused_scan_topk {tname} nq={nq} kept rows="
             f"{xk.shape[0]} d={d}: max|dd2|={err:.3g} tie swaps={swaps} "
@@ -948,13 +1372,17 @@ def measure(record, orig, launches, errs):
             f"{pairs} admitted (query, row) pairs; kernel {k_ms:.4f} ms, "
             f"plain {p_ms:.4f} ms, cdist+where+topk {l_ms:.4f} ms, bound "
             f"{bound:.4f} ms ({by})")
-    main = "t6" if "t6" in fs_rows else next(iter(fs_rows))
-    k_ms, p_ms, bound, by, l_ms = fs_rows[main]
-    out.append(("fused_scan_topk", k_ms, p_ms, bound, by, l_ms))
-    out.append(measure_quantized(record, orig))
+    if fs_rows:
+        main = "t6" if "t6" in fs_rows else next(iter(fs_rows))
+        k_ms, p_ms, bound, by, l_ms = fs_rows[main]
+        out.append(("fused_scan_topk", k_ms, p_ms, bound, by, l_ms))
+    if record["quantized"]:
+        out.append(measure_quantized(record, orig))
 
     for kind, name in (("ivf", "ivf_scan"), ("bitmap", "bitmap_filter"),
                        ("pq", "pq_adc")):
+        if not record[kind]:
+            continue
         best = None
         for key, (x, y, calls) in sorted(record[kind].items(),
                                          key=lambda kv: -kv[1][2]):
@@ -992,9 +1420,7 @@ def measure(record, orig, launches, errs):
                 k_ms = cuda_ms(lambda x=x, y=y: orig[kind](x, y))
                 p_ms = cuda_ms(plain)
                 l_ms = cuda_ms(lib) if lib is not None else None
-                tb, tf = nbytes / HBM_BYTES_PER_S, flops / FP32_FLOPS
-                bound = max(tb, tf) * 1e3
-                by = "bytes" if tb >= tf else "operations"
+                bound, by = row_bound(nbytes, flops)
                 best = (name, k_ms, p_ms, bound, by, l_ms)
                 log(f"kernel {name} {key} ({calls} main-path launches at "
                     f"this shape): kernel {k_ms:.4f} ms, plain {p_ms:.4f} "
@@ -1003,6 +1429,11 @@ def measure(record, orig, launches, errs):
         log(f"kernel {name}: {len(record[kind])} main-path shapes held "
             f"against the plain version, max abs err {errs[name]:.3g}")
         out.append(best)
+    if record["merge"]:
+        out.append(measure_merge(record, orig))
+    if record["graph"]:
+        out.append(measure_graph(record, orig))
+    out.append(measure_topk(orig, dev))
     line = []
     for name, k_ms, p_ms, bound, by, l_ms in out:
         src, rep = SOURCES[name]
@@ -1012,6 +1443,100 @@ def measure(record, orig, launches, errs):
                      "plain_ms": p_ms, "bound_ms": bound, "bound_by": by,
                      "library_ms": l_ms})
     return line
+
+
+def measure_merge(record, orig):
+    """The cross-shard merge on every input the sharded path gave it,
+    bitwise against its plain version; the first (a t6 batch) timed, the
+    kernel by its device time in a profiler trace.  No
+    single PyTorch call computes it: ``torch.topk`` does not break ties by
+    id."""
+    import torch
+    from repro_torch.kernels import ref
+    for d, i, k in record["merge"]:
+        o = orig["merge"](d, i, k)
+        torch.cuda.synchronize()
+        w = ref.batched_topk_merge_ref(d, i, k)
+        check(same_bits(o[0], w[0]) and same_bits(o[1], w[1]),
+              f"batched_topk_merge differs from the plain version on a "
+              f"sharded-path input {tuple(d.shape)} k={k}")
+    d, i, k = record["merge"][0]
+    nq, s, kk = d.shape
+    e_ms = cuda_ms(lambda: orig["merge"](d, i, k))
+    k_ms = kernel_ms(lambda: orig["merge"](d, i, k),
+                     "batched_topk_merge_kernel")
+    p_ms = cuda_ms(lambda: ref.batched_topk_merge_ref(d, i, k))
+    # each candidate read once (score + id), each winner written once; one
+    # comparison per candidate is the least a selection does
+    bound, by = row_bound(nq * s * kk * 8 + nq * k * 8, nq * s * kk)
+    log(f"kernel batched_topk_merge: {len(record['merge'])} sharded-path "
+        f"inputs bitwise equal to the plain version; at {tuple(d.shape)} "
+        f"k={k}: kernel {k_ms:.4f} ms device time ({e_ms:.4f} ms a call "
+        f"by CUDA events), plain {p_ms:.4f} ms, library none "
+        f"(torch.topk breaks no ties by id), bound {bound:.6f} ms ({by})")
+    return ("batched_topk_merge", k_ms, p_ms, bound, by, None)
+
+
+def measure_graph(record, orig):
+    """The beam search on every input the graph path gave it: all four
+    outputs bitwise against its plain version and against what the path
+    got; a default-plan g6 batch timed.  Bound: the vectors, pks and
+    bitmap bytes of the rows the walk gathered (each read once), the
+    queries, entries and outputs; 3 d operations per gathered row (the
+    neighbour lists it reads are left out: a lower bound).  No single
+    PyTorch call computes it."""
+    import torch
+    from repro_torch.kernels import ref
+    timed = None
+    for a, got in record["graph"]:
+        o = orig["graph"](*a)
+        torch.cuda.synchronize()
+        graph_compare(o, ref.graph_search_topk_ref(*a), "graph-path input")
+        graph_compare(o, got, "graph-path output")
+        if timed is None:
+            timed = (a, got)
+    a, got = timed
+    q, x, nbr, ent, mask, pks, beam, hops = a
+    nq, d = q.shape
+    gathered = int(popcounts(got[3]).sum())
+    nbytes = (gathered * (4 * d + 4 + 1) + q.numel() * 4 + ent.numel() * 4
+              + nq * beam * 12 + got[3].numel() * 4)
+    bound, by = row_bound(nbytes, gathered * 3 * d)
+    k_ms = cuda_ms(lambda: orig["graph"](*a))
+    p_ms = cuda_ms(lambda: ref.graph_search_topk_ref(*a), reps=3, warm=1)
+    log(f"kernel graph_search_topk: {len(record['graph'])} graph-path "
+        f"inputs, d2, pks, rows and visited words bitwise equal to the plain "
+        f"version and to the path's outputs; at nq={nq} rows={x.shape[0]} "
+        f"R={nbr.shape[1]} entries={ent.shape[1]} beam={beam} hops={hops} "
+        f"({gathered} rows gathered): kernel {k_ms:.4f} ms, plain "
+        f"{p_ms:.4f} ms, library none, bound {bound:.6f} ms ({by})")
+    return ("graph_search_topk", k_ms, p_ms, bound, by, None)
+
+
+def measure_topk(orig, dev):
+    """The single-list merge, which no path runs (only ``ops.merge_topk``
+    reaches it): timed at one query's sharded merge shape, (4, 10) -> 10,
+    by its device time in a profiler trace, against its plain version.  No single PyTorch call breaks ties by
+    position as it does (``torch.sort(stable=True)`` + a slice is two)."""
+    import torch
+    from repro_torch.kernels import ref
+    rng = np.random.default_rng(4)
+    d = torch.from_numpy(rng.uniform(0, 10, (4, 10)).astype(
+        np.float32)).to(dev)
+    i = torch.arange(40, dtype=torch.int64, device=d.device).view(4, 10)
+    o = orig["topk"](d, i, 10)
+    torch.cuda.synchronize()
+    w = ref.topk_merge_ref(d, i, 10)
+    check(same_bits(o[0], w[0]) and same_bits(o[1], w[1]),
+          "topk_merge differs from the plain version")
+    e_ms = cuda_ms(lambda: orig["topk"](d, i, 10))
+    k_ms = kernel_ms(lambda: orig["topk"](d, i, 10), "topk_merge_kernel")
+    p_ms = cuda_ms(lambda: ref.topk_merge_ref(d, i, 10))
+    bound, by = row_bound(40 * 12 + 10 * 12, 40)
+    log(f"kernel topk_merge at (4, 10) k=10: kernel {k_ms:.4f} ms device "
+        f"time ({e_ms:.4f} ms a call by CUDA events), plain "
+        f"{p_ms:.4f} ms, library none, bound {bound:.7f} ms ({by})")
+    return ("topk_merge", k_ms, p_ms, bound, by, None)
 
 
 def measure_quantized(record, orig):
@@ -1051,9 +1576,7 @@ def measure_quantized(record, orig):
             dd = torch.where(mk.bool(), dd, torch.full_like(dd, float("inf")))
             return torch.topk(dd, 128, dim=1, largest=False)
         l_ms = cuda_ms(library, reps=3, warm=1)
-        tb, tf = nbytes / HBM_BYTES_PER_S, flops / FP32_FLOPS
-        bound = max(tb, tf) * 1e3
-        by = "bytes" if tb >= tf else "operations"
+        bound, by = row_bound(nbytes, flops)
         row = ("quantized_scan_topk", k_ms, p_ms, bound, by, l_ms)
         log(f"kernel quantized_scan_topk {tname}: kernel {k_ms:.4f} ms, plain "
             f"{p_ms:.4f} ms, gather-sum+where+topk {l_ms:.4f} ms, bound "
@@ -1063,17 +1586,29 @@ def measure_quantized(record, orig):
 
 
 def busy_share(ctx) -> None:
-    """Device busy share of one more t6, g6 and t2 batch (after the counts
-    were read): device time of every kernel and copy in a
-    ``torch.profiler`` trace over the batch's wall time.  A trace without
-    device events is reported as not measured."""
+    """Device busy share of one more t6, g6 and t2 batch on the main store
+    and one t6 batch on the sharded store (after the counts were read):
+    device time of every kernel and copy in a ``torch.profiler`` trace
+    over the batch's wall time.  An untraced batch of the same template
+    runs first, so the traced one finds the store's packs on the card (the
+    later paths' packs may have evicted them from the LRU).  A trace
+    without device events is reported as not measured."""
     import torch
     from torch.profiler import ProfilerActivity, profile
-    ex, tmpl, gt = ctx["ex"], ctx["tmpl"], ctx["gt"]
-    draw = {"t6": lambda: tmpl["t6"]()[0], "g6": lambda: gt["g6"]()[0],
-            "t2": lambda: tmpl["t2"]()[0]}
-    for name in ("t6", "g6", "t2"):
-        queries = [draw[name]() for _ in range(8)]
+    runs = []
+    if "main" in ctx:
+        m = ctx["main"]
+        ex, tmpl, gt = m["ex"], m["tmpl"], m["gt"]
+        runs += [("t6", ex, lambda: tmpl["t6"]()[0]),
+                 ("g6", ex, lambda: gt["g6"]()[0]),
+                 ("t2", ex, lambda: tmpl["t2"]()[0])]
+    if "sharded" in ctx:
+        sex, stmpl = ctx["sharded"]["ex"], ctx["sharded"]["tmpl"]
+        runs.append(("sharded t6", sex, lambda: stmpl["t6"]()[0]))
+    for name, ex, draw in runs:
+        ex.execute_many([draw() for _ in range(8)])
+        torch.cuda.synchronize()
+        queries = [draw() for _ in range(8)]
         try:
             with profile(activities=[ProfilerActivity.CPU,
                                      ProfilerActivity.CUDA]) as prof:
@@ -1083,16 +1618,34 @@ def busy_share(ctx) -> None:
                 wall_us = (time.perf_counter() - t0) * 1e6
             dev_us = sum(getattr(e, "self_device_time_total", 0.0)
                          for e in prof.key_averages())
+            busy_us = device_busy_us(prof)
         except RuntimeError as e:        # a tracer the sandbox refuses
             log(f"busy share {name}: not measured ({e})")
             continue
-        if dev_us <= 0:
+        if busy_us <= 0:
             log(f"busy share {name}: not measured (no device events)")
             continue
-        log(f"busy share {name}: device {dev_us / 1e3:.3f} ms of "
+        log(f"busy share {name}: device busy {busy_us / 1e3:.3f} ms of "
             f"{wall_us / 1e3:.3f} ms traced batch wall time "
-            f"({100 * dev_us / wall_us:.2f} % busy, "
-            f"{100 - 100 * dev_us / wall_us:.2f} % idle)")
+            f"({100 * busy_us / wall_us:.2f} % busy, "
+            f"{100 - 100 * busy_us / wall_us:.2f} % idle; the per-op sum of "
+            f"self device time, which may count an interval more than once, "
+            f"is {dev_us / 1e3:.3f} ms)")
+
+
+def device_busy_us(prof) -> float:
+    """Microseconds in which the card ran at least one traced kernel,
+    copy or fill: the union of the device events' intervals."""
+    from torch.autograd import DeviceType
+    spans = sorted((e.time_range.start, e.time_range.end)
+                   for e in prof.events()
+                   if getattr(e, "device_type", None) == DeviceType.CUDA)
+    busy, end = 0.0, float("-inf")
+    for a, b in spans:
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    return busy
 
 
 def card_line() -> str:
@@ -1105,7 +1658,8 @@ def card_line() -> str:
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phase", choices=("all", "kernels"), default="all")
+    ap.add_argument("--phase", default="all",
+                    choices=("all", "kernels", "main", "sharded", "graph"))
     args = ap.parse_args()
     if not (HERE / "src" / "repro_torch" / "kernels" / "csrc").is_dir():
         print("chip_smoke.py: src/repro_torch not found beside this script;"
@@ -1136,26 +1690,45 @@ def main() -> int:
         errs = {n: 0.0 for n in SOURCES}
         edge_checks(dev, errs)
         adc_edge_checks(dev, errs)
+        merge_edge_checks(dev)
+        graph_edge_checks(dev)
         if args.phase == "kernels":
             log("kernels phase finished: no result")
             return 0
         record = {}
         orig = install_recorder(record)
-        paths = {}
-        paths["main"], ctx = main_path(dev, record)
-        paths["quantized"] = quantized_path(dev, record, ctx)
-        paths["IVF-PQ"] = pqivf_path(dev)
+        run = ("main", "sharded", "graph") if args.phase == "all" \
+            else (args.phase,)
+        paths, ctx = {}, {}
+        if "main" in run:
+            paths["main"], ctx["main"] = main_path(dev, record)
+            paths["quantized"] = quantized_path(dev, record, ctx["main"])
+            paths["IVF-PQ"] = pqivf_path(dev)
+        if "sharded" in run:
+            paths["sharded"], ctx["sharded"] = sharded_path(dev, record)
+        if "graph" in run:
+            paths["graph"], ctx["graph"] = graph_path(dev, record)
         for path, must in (("main", ("fused_scan_topk", "ivf_scan",
                                      "bitmap_filter")),
                            ("quantized", ("quantized_scan_topk",
                                           "fused_scan_topk")),
-                           ("IVF-PQ", ("pq_adc", "ivf_scan"))):
+                           ("IVF-PQ", ("pq_adc", "ivf_scan")),
+                           ("sharded", ("batched_topk_merge",
+                                        "fused_scan_topk", "ivf_scan",
+                                        "bitmap_filter")),
+                           ("graph", ("graph_search_topk",
+                                      "fused_scan_topk"))):
+            if path not in paths:
+                continue
             log(f"{path} path launches: {paths[path]}")
             for name in must:
                 check(paths[path][name] > 0,
                       f"{name} never launched on the {path} path")
         launches = {n: sum(c[n] for c in paths.values()) for n in SOURCES}
-        line = measure(record, orig, launches, errs)
+        line = measure(record, orig, launches, errs, dev)
+        if args.phase == "all":
+            check(sorted(r["name"] for r in line) == sorted(SOURCES),
+                  "the kernel line lacks a kernel")
         busy_share(ctx)
         log(card_line())
         log(json.dumps({"kernels": line}))

@@ -14,8 +14,9 @@ package's segment files (``repro.core.segment`` save format):
 
 and rebuilds segments, indexes, PQ residence and the store's write
 frontier from them, so a port store answers from exactly the state the
-exporting store held.  Only numpy arrays cross: nothing of the JAX package
-is imported.
+exporting store held.  ``router_from_arrays`` does so shard by shard for a
+sharded store.  Only numpy arrays cross: nothing of the JAX package is
+imported.
 """
 from __future__ import annotations
 
@@ -26,6 +27,7 @@ import numpy as np
 from repro_torch.core import quantize as qz
 from repro_torch.core import segment as seg_lib
 from repro_torch.core.lsm import LSMConfig, LSMStore
+from repro_torch.core.shards import ShardRouter
 from repro_torch.core.types import ColumnType, Schema
 from repro_torch.kernels.ops import Device
 
@@ -108,3 +110,22 @@ def store_from_arrays(schema: Schema,
     if unique_pks is not None:
         store.unique_pks = bool(unique_pks)
     return store
+
+
+def router_from_arrays(schema: Schema,
+                       shards: Sequence[Sequence[Mapping[str, np.ndarray]]],
+                       cfg: Optional[LSMConfig] = None,
+                       device: Device = "cuda",
+                       unique_pks: Optional[Sequence[bool]] = None
+                       ) -> ShardRouter:
+    """A port ``ShardRouter`` on ``device`` whose shard i holds the
+    segments ``shards[i]`` (``store_from_arrays`` per shard, in the
+    exporting router's shard order, so pks keep their owning shard).
+    ``unique_pks`` gives each shard's write-history flag."""
+    router = ShardRouter(schema, cfg, n_shards=len(shards), device=device)
+    flags = list(unique_pks) if unique_pks is not None \
+        else [None] * len(shards)
+    router.shards = [store_from_arrays(schema, segs, cfg, device=device,
+                                       unique_pks=flag)
+                     for segs, flag in zip(shards, flags)]
+    return router

@@ -4,6 +4,7 @@ from __future__ import annotations
 from repro_torch.core.index.base import (  # noqa: F401
     ExactSortedAccess, MergedSortedAccess, SecondaryIndex, SortedAccess)
 from repro_torch.core.index.global_index import GlobalIndex, GlobalIndexSet  # noqa: F401
+from repro_torch.core.index.graph import GraphIndex, PackedGraph, pack_graphs  # noqa: F401
 from repro_torch.core.index.ivf import IVFIndex
 from repro_torch.core.index.scalar import ScalarIndex
 from repro_torch.core.index.spatial import ZOrderIndex
@@ -21,8 +22,7 @@ def default_index_factory(column: Column):
     if k == IndexKind.PQIVF:
         return IVFIndex(use_pq=True)
     if k == IndexKind.GRAPH:
-        raise NotImplementedError("IndexKind.GRAPH is not ported yet "
-                                  "(ROADMAP queue 1, item 8)")
+        return GraphIndex()
     if k == IndexKind.ZORDER:
         return ZOrderIndex()
     if k == IndexKind.INVERTED:

@@ -66,7 +66,7 @@ class LSMStore:
         if self.cfg.path:
             raise NotImplementedError(
                 "LSMConfig(path=...): durability is not ported yet "
-                "(ROADMAP queue 1, item 9)")
+                "(ROADMAP queue 1, item 6)")
         self.device = resolve_device(device)
         self._memtable_factory = memtable_factory or mt.MemTable
         self.memtable = self._memtable_factory(schema)

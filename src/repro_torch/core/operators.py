@@ -20,8 +20,8 @@ sequential segment sweeps become one.
 
 Kernel work runs on the store's device (``ctx.device``); the fused and
 quantized scans read the packed column and codes where ``pack_segments``
-and ``pack_quantized`` keep them, on that device.  The graph and sharded
-operators are not ported yet.
+and ``pack_quantized`` keep them, on that device; the graph beam search
+reads the packed column there too.
 """
 from __future__ import annotations
 
@@ -878,6 +878,87 @@ class QuantizedScanTopK(FusedScanTopK):
                           rerank_rows=rerank_rows)
 
 
+class GraphSearchTopK(FusedScanTopK):
+    """Graph dispatch: batched beam search over the stitched per-segment
+    CSR proximity graphs (``kernels/graph_search.py``) generates
+    candidates by traversal — only the rows the frontier touches are ever
+    gathered, no column stream — then an exact re-rank of the beam
+    survivors through the ordinary fused scan with the survivor bitmap.
+    The re-rank reuses ``kops.fused_scan_topk`` verbatim, so the final
+    (score, pk) results carry the exact path's arithmetic and tie-break
+    comparator — whenever the beam covers the true top-k (beam wide
+    enough for the recall target), results are bitwise identical to the
+    exact dispatch.  Admissible only under the planner's
+    ``_graph_params`` gate (explicit recall_target, all-segment graph
+    residence); a pack-time missing graph falls back to the exact fused
+    scan, never to wrong answers.
+
+    Stats reflect the traversal: ``rows_scanned`` / ``bytes_scanned``
+    charge the rows the beam actually gathered (the visited-bitmap
+    popcount the kernel returns), not the mask-passing row count the
+    streaming dispatches charge."""
+    name = "GraphSearchTopK"
+
+    def _collect(self, ctx: PipelineContext) -> List[List[Candidates]]:
+        from repro_torch.core.index import graph as graph_lib
+        g = self._gather(ctx)
+        if g is None:
+            return [[] for _ in range(ctx.nq)]
+        segs, packed, mask_all, Q = g
+        k = max(qq.k for qq in ctx.queries)
+        fp_bytes = packed.x.shape[1] * packed.x.element_size()
+        pg = graph_lib.pack_graphs(segs, ctx.queries[0].ranks[0].col)
+        if pg is None:
+            # graph residence fell behind (a segment without a built
+            # graph): exact fused scan, correctness before traversal
+            d2, rows = kops.fused_scan_topk(Q, packed.x, mask_all,
+                                            packed.pks, k, device=ctx.device)
+            return self._emit(ctx, segs, packed, mask_all, d2, rows,
+                              scan_row_bytes=fp_bytes)
+        beam = max((getattr(p, "graph_beam", 0) for p in ctx.plans),
+                   default=0) or 32
+        hops = max((getattr(p, "graph_hops", 0) for p in ctx.plans),
+                   default=0) or 8
+        beam = min(beam, int(kops.fs_kernel.KMAX))
+        _, brows, gathered = kops.graph_search_topk(
+            Q, packed.x, pg.neighbors, pg.entries, mask_all, packed.pks,
+            beam, hops, device=ctx.device)
+        # survivor bitmap for the exact re-rank (per query)
+        rmask = np.zeros_like(mask_all)
+        rerank_rows: List[int] = []
+        for qi in range(ctx.nq):
+            rr = brows[qi][brows[qi] >= 0]
+            rmask[qi, rr] = True
+            rerank_rows.append(len(rr))
+        d2, rows = kops.fused_scan_topk(Q, packed.x, rmask, packed.pks, k,
+                                        device=ctx.device)
+        out: List[List[Candidates]] = [[] for _ in range(ctx.nq)]
+        sp = obs_trace.current_span()
+        for qi, (qq, plan) in enumerate(zip(ctx.queries, ctx.plans)):
+            n_gath = int(gathered[qi])
+            ctx.stats[qi].rows_scanned += n_gath
+            ctx.stats[qi].bytes_scanned += n_gath * fp_bytes
+            ctx.stats[qi].rerank_rows += rerank_rows[qi]
+            if sp is not None:
+                sp.add("rows", n_gath)
+                sp.add("bytes", n_gath * fp_bytes)
+            if not plan.indexed and not plan.residual and not plan.subplans:
+                blocks = -(-n_gath // BLOCK_ROWS) * len(qq.ranks)
+                ctx.stats[qi].blocks_read += blocks
+                if sp is not None:
+                    sp.add("blocks", blocks)
+            keep = rows[qi] >= 0
+            rr = rows[qi][keep]
+            if not len(rr):
+                continue
+            w = np.float32(qq.ranks[0].weight)
+            scores = w * np.sqrt(np.maximum(d2[qi][keep], 0)
+                                 ).astype(np.float32)
+            out[qi].append(Candidates(packed.sids[rr], packed.rows[rr],
+                                      scores))
+        return out
+
+
 class VisibilityResolve(PhysicalOp):
     """Drop candidates shadowed by a newer version of their pk anywhere in
     the store (shared lexsort winner set — core/visibility.py)."""
@@ -965,6 +1046,32 @@ class EmptyResult(PhysicalOp):
     name = "EmptyResult"
 
 
+
+class ShardFanout(PhysicalOp):
+    """Scatter one query batch to every shard's independent pipeline
+    (rows are hash-partitioned by pk across shards — core/shards).  The
+    children are the per-shard operator subtrees, each costed against
+    that shard's own catalog; execution runs them over each shard's
+    segments, memtable and visibility state in full."""
+    name = "ShardFanout"
+
+
+class CrossShardTopKMerge(PhysicalOp):
+    """Device-side merge of the per-shard top-k candidate lists into the
+    global top-k (``kernels/topk_merge.py::batched_topk_merge``, ordered
+    by the host comparator (score, pk)).  Shards partition pks, so the
+    merge of per-shard top-ks IS the exact global top-k; the host never
+    handles more than shards * k rows per query."""
+    name = "CrossShardTopKMerge"
+
+
+class ShardConcat(PhysicalOp):
+    """Shard-wise concatenation of filter/scan results: shards hold
+    disjoint pk sets, so concatenating and re-sorting by the result
+    comparator (score, pk) reproduces the single-store output exactly."""
+    name = "ShardConcat"
+
+
 # ---------------------------------------------------------------------------
 # materialization
 # ---------------------------------------------------------------------------
@@ -1043,13 +1150,14 @@ def run_scan_group(store, catalog, queries, plans, stats,
         if any(p.residual for p in plans):
             source = FilterBitmap([source])
     if is_nn:
-        # planner-chosen dispatch: quantized ADC + exact re-rank, fused
-        # packed kernel (one launch per batch), or staged per-segment
-        # RankScore; the executor groups by the (fused, quantized, graph)
-        # flags so a group is always homogeneous
-        if any(getattr(p, "graph", False) for p in plans):
-            raise NotImplementedError(_UNPORTED_DISPATCH)
-        if all(getattr(p, "quantized", False) for p in plans):
+        # planner-chosen dispatch: graph beam-search + exact re-rank,
+        # quantized ADC + exact re-rank, fused packed kernel (one launch
+        # per batch), or staged per-segment RankScore; the executor
+        # groups by the (fused, quantized, graph) flags so a group is
+        # always homogeneous
+        if all(getattr(p, "graph", False) for p in plans):
+            ranker = GraphSearchTopK
+        elif all(getattr(p, "quantized", False) for p in plans):
             ranker = QuantizedScanTopK
         elif all(getattr(p, "fused", False) for p in plans):
             ranker = FusedScanTopK
@@ -1087,10 +1195,6 @@ def _pred_detail(preds) -> str:
             return f"{type(p).__name__}[{len(p.children)}]"
         return type(p).__name__ + ":" + str(getattr(p, "col", "?"))
     return ",".join(one(p) for p in preds)
-
-
-_UNPORTED_DISPATCH = ("the graph NN dispatch is not ported yet (ROADMAP "
-                      "queue 1, item 8)")
 
 
 def build_tree(plan, catalog=None) -> PhysicalOp:
@@ -1145,12 +1249,23 @@ def build_tree(plan, catalog=None) -> PhysicalOp:
 
     def ranker(node: PhysicalOp) -> PhysicalOp:
         """RankScore (staged per-segment kernels), FusedScanTopK (one
-        packed launch) or QuantizedScanTopK (ADC scan + exact re-rank) per
-        the plan's dispatch choice."""
+        packed launch), QuantizedScanTopK (ADC scan + exact re-rank), or
+        GraphSearchTopK (CSR beam search + exact re-rank) per the plan's
+        dispatch choice."""
         est = (passing / BLOCK_ROWS) * C_VECTOR_BLOCK * \
             max(1, len(plan.ranks))
         if getattr(plan, "graph", False):
-            raise NotImplementedError(_UNPORTED_DISPATCH)
+            from repro_torch.core.optimizer.cost import C_GATHER_ROW, C_HOP
+            gathered = plan.graph_beam * plan.graph_r * plan.graph_hops / 2
+            return GraphSearchTopK(
+                [node],
+                detail=(f"beam search R={plan.graph_r} "
+                        f"beam={plan.graph_beam} hops={plan.graph_hops} "
+                        f"-> exact re-rank k={plan.k}"),
+                est_cost=(plan.graph_hops * C_HOP
+                          + gathered * C_GATHER_ROW
+                          + plan.graph_beam * C_RERANK_ROW),
+                est_rows=gathered)
         if getattr(plan, "quantized", False):
             d = plan.ranks[0].q.shape[0] if plan.ranks else 1
             ratio = plan.pq_m / max(1.0, 4.0 * d)

@@ -1,8 +1,8 @@
 """Build and load the hand-written CUDA kernels under ``csrc/``.
 
-Each ``csrc/<name>.cu`` exposes a plain C launcher and is compiled by
-``nvcc`` for ``sm_90a`` into its own shared library, loaded with
-``ctypes``; ``csrc/*.cuh`` are headers the sources share.  Builds happen
+Each ``csrc/<name>.cu`` exposes plain C launchers (``SIGNATURES``) and
+is compiled by ``nvcc`` for ``sm_90a`` into its own shared library,
+loaded with ``ctypes``; ``csrc/*.cuh`` are headers the sources share.  Builds happen
 at first use (or all at once, in parallel, through ``build_all``) into
 ``_build/`` next to this file, named by a hash of the source, the headers
 and the flags so an edited source is rebuilt.  Nothing is built or
@@ -24,22 +24,30 @@ _HERE = Path(__file__).resolve().parent
 CSRC = _HERE / "csrc"
 BUILD_DIR = _HERE / "_build"
 SOURCES = ("fused_scan", "ivf_scan", "bitmap_filter", "quantized_scan",
-           "pq_adc")
+           "pq_adc", "topk_merge", "graph_search")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
-# C signature of each launcher (every one returns a cudaError_t as int)
+# C signatures of each library's launchers (every one returns a
+# cudaError_t as int)
 SIGNATURES = {
-    "fused_scan": ("fused_scan_topk_launch",
-                   [_P] * 12 + [_I, _I, _L, _I, _I, _I, _P]),
-    "ivf_scan": ("ivf_scan_launch", [_P, _P, _P, _I, _I, _I, _P]),
-    "bitmap_filter": ("bitmap_filter_launch", [_P, _P, _P, _L, _I, _I, _P]),
-    "quantized_scan": ("quantized_scan_topk_launch",
-                       [_P] * 12 + [_I, _I, _L, _I, _I, _I, _L, _P]),
-    "pq_adc": ("pq_adc_launch", [_P, _P, _P, _L, _I, _P]),
+    "fused_scan": {"fused_scan_topk_launch":
+                   [_P] * 12 + [_I, _I, _L, _I, _I, _I, _P]},
+    "ivf_scan": {"ivf_scan_launch": [_P, _P, _P, _I, _I, _I, _P]},
+    "bitmap_filter": {"bitmap_filter_launch":
+                      [_P, _P, _P, _L, _I, _I, _P]},
+    "quantized_scan": {"quantized_scan_topk_launch":
+                       [_P] * 12 + [_I, _I, _L, _I, _I, _I, _L, _P]},
+    "pq_adc": {"pq_adc_launch": [_P, _P, _P, _L, _I, _P]},
+    "topk_merge": {"batched_topk_merge_launch":
+                   [_P, _P, _P, _P, _I, _L, _I, _L, _P],
+                   "topk_merge_launch":
+                   [_P, _P, _P, _P, _L, _I, _I, _L, _P]},
+    "graph_search": {"graph_search_topk_launch":
+                     [_P] * 10 + [_I, _I, _L, _I, _I, _I, _I, _I, _L, _P]},
 }
 
 _lock = threading.Lock()
@@ -101,10 +109,10 @@ def _compile(name: str, out: Path):
 
 def _bind(name: str, path: Path) -> ctypes.CDLL:
     lib = ctypes.CDLL(str(path))
-    fn_name, argtypes = SIGNATURES[name]
-    fn = getattr(lib, fn_name)
-    fn.argtypes = argtypes
-    fn.restype = ctypes.c_int
+    for fn_name, argtypes in SIGNATURES[name].items():
+        fn = getattr(lib, fn_name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
     return lib
 
 
@@ -132,10 +140,13 @@ def build_all(names: List[str] = None) -> Dict[str, ctypes.CDLL]:
         return {n: _libs[n] for n in names}
 
 
-def launcher(name: str):
-    """The C launcher of kernel ``name``, building it on first use."""
+def launcher(name: str, fn: str = None):
+    """The C launcher ``fn`` of library ``name`` (by default its only
+    one), building the library on first use."""
     lib = _libs.get(name) or build_all([name])[name]
-    return getattr(lib, SIGNATURES[name][0])
+    if fn is None:
+        (fn,) = SIGNATURES[name]
+    return getattr(lib, fn)
 
 
 # Shared memory one block may opt in to on compute capability 9.0, the

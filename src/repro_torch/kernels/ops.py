@@ -14,7 +14,7 @@ charges it, so ``ExecStats`` compare one to one.
 
 The host-side engine calls these for all per-segment compute: distance
 scans, PQ ADC, predicate bitmaps, the fused exact and quantized scan ->
-top-k.
+top-k, the graph beam search and the top-k merges.
 """
 from __future__ import annotations
 
@@ -27,10 +27,12 @@ import torch
 
 from repro_torch.kernels import bitmap_filter as bf_kernel
 from repro_torch.kernels import fused_scan as fs_kernel
+from repro_torch.kernels import graph_search as gs_kernel
 from repro_torch.kernels import ivf_scan as ivf_kernel
 from repro_torch.kernels import pq_adc as pq_kernel
 from repro_torch.kernels import quantized_scan as qs_kernel
 from repro_torch.kernels import ref
+from repro_torch.kernels import topk_merge as tk_kernel
 from repro_torch.obs import REGISTRY
 
 Device = Union[str, torch.device]
@@ -669,3 +671,263 @@ def _quantized_kernel(lut: np.ndarray, codes, mask: np.ndarray, pks,
                 tuple(args[0].shape) + (nb_pad * fs_kernel.BLOCK_N,
                                         args[1].shape[1]))
     return adc[:nq, :k], _kept_rows(idx[:nq, :k], keep)
+
+
+# ---------------------------------------------------------------------------
+# graph beam search -> top-beam (candidate generation)
+# ---------------------------------------------------------------------------
+
+def _graph_host(q, x, nbr, ent, mask, pks64, beam, hops):
+    """Host numpy beam search: same hop/dedup/comparator structure as the
+    kernel, per query (the JAX package's host path, as it is: its merges
+    order by (d2, pk, row)).  Candidate COVERAGE can differ from the
+    device paths by float ulps at the beam margin; the operator layer's
+    exact re-rank normalizes scores either way."""
+    nq, n = len(q), len(x)
+    out_d = np.full((nq, beam), np.inf, np.float32)
+    out_r = np.full((nq, beam), -1, np.int64)
+    gathered = np.zeros(nq, np.int64)
+    for qi in range(nq):
+        qv = q[qi]
+        visited = np.zeros(n, bool)
+        visited[ent] = True
+        diff = x[ent] - qv
+        bd = (diff * diff).sum(axis=1).astype(np.float32)
+        bi = ent.copy()
+        adm = mask[qi][bi]
+        res_d, res_i = [bd[adm]], [bi[adm]]
+        order = np.lexsort((bi, pks64[bi], bd))[:beam]
+        bd, bi = bd[order], bi[order]
+        for _ in range(hops):
+            cand = nbr[bi].ravel()
+            cand = np.unique(cand[cand >= 0])
+            cand = cand[~visited[cand]]
+            if not len(cand):
+                break
+            visited[cand] = True
+            diff = x[cand] - qv
+            cd = (diff * diff).sum(axis=1).astype(np.float32)
+            adm = mask[qi][cand]
+            res_d.append(cd[adm])
+            res_i.append(cand[adm])
+            md = np.concatenate([bd, cd])
+            mi = np.concatenate([bi, cand])
+            order = np.lexsort((mi, pks64[mi], md))[:beam]
+            bd, bi = md[order], mi[order]
+        gathered[qi] = int(visited.sum())
+        rd = np.concatenate(res_d)
+        ri = np.concatenate(res_i)
+        order = np.lexsort((ri, pks64[ri], rd))[:beam]
+        out_d[qi, :len(order)] = rd[order]
+        out_r[qi, :len(order)] = ri[order]
+    _dispatched(out_d.nbytes + out_r.nbytes)
+    return out_d, out_r, gathered
+
+
+def _graph_padded(q, nbr, ent, mask, pks64, npad: int):
+    """The JAX package's device-branch padding to ``npad`` rows (all -1
+    adjacency, unreachable; SENTINEL pks; no bitmap bit), the entries
+    bucketed with SENTINEL, queries to BLOCK_Q tiles.  Returns (qp, nbp,
+    ep, mq, pk32)."""
+    BQ = fs_kernel.BLOCK_Q
+    sent = int(fs_kernel.SENTINEL)
+    n = len(nbr)
+    nbp = np.full((npad, nbr.shape[1]), -1, np.int32)
+    nbp[:n] = nbr
+    mp = np.zeros((len(q), npad), np.uint8)
+    mp[:, :n] = mask
+    pkp = np.full(npad, sent, np.int64)
+    pkp[:n] = pks64
+    ep = np.full((1, _bucket(len(ent), floor=8)), sent, np.int32)
+    ep[0, :len(ent)] = ent
+    return (_pad_to(q, BQ, 0), nbp, ep, _pad_to(mp, BQ, 0),
+            pkp.astype(np.int32)[None, :])
+
+
+def _graph_rows(n: int) -> int:
+    """The JAX package's padded row count: a bucketed BLOCK_N multiple."""
+    BN = fs_kernel.BLOCK_N
+    return _bucket(-(-n // BN) * BN, floor=BN)
+
+
+def _graph_result(d2, ids, vis, nq: int, vis_bytes: int, tag: str,
+                  shape: Tuple):
+    """The device branch's epilogue: (nq, beam) d2, rows (SENTINEL ->
+    -1) and the visited bitmask's popcount per query, with the dispatch
+    charged as the JAX package charges it (its bitmask has ``vis_bytes``
+    for the nq queries)."""
+    sent = int(fs_kernel.SENTINEL)
+    d2, ids, vis = d2[:nq], ids[:nq], vis[:nq]
+    _dispatched(d2.nbytes + ids.nbytes + vis_bytes, tag, shape)
+    rows = np.where(ids == sent, -1, ids).astype(np.int64)
+    gathered = np.unpackbits(
+        np.ascontiguousarray(vis).view(np.uint8), axis=1).sum(
+            axis=1).astype(np.int64)
+    return d2, rows, gathered
+
+
+def graph_search_topk(q: np.ndarray, x, neighbors: np.ndarray,
+                      entries: np.ndarray, mask: np.ndarray, pks,
+                      beam: int, hops: int, device: Device = "cuda"
+                      ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Graph-index candidate generation over a packed CSR superbatch.
+
+    q (nq, d) queries; x (>= n, d) packed vectors (a host array or the
+    tensor ``pack_segments`` keeps on the store's device; rows past n are
+    padding); neighbors (n, R) int32 CSR adjacency in packed row space
+    (-1 out-degree padding); entries (e,) seed rows (the per-segment
+    medoids and FPS entries); mask (nq, n) bool predicate bitmap; pks
+    (>= n,) primary keys.  Returns (d2 (nq, beam) fp32 squared-L2
+    ascending, rows (nq, beam) int64 packed row ids, -1 beyond a query's
+    candidate count, gathered (nq,) int64 count of rows whose vectors the
+    walk touched: the popcount of the visited words).  Ties break by
+    (distance, pk) like every scan kernel.
+
+    Distances are exact but coverage is approximate: callers re-rank the
+    survivors through ``fused_scan_topk`` with the survivor mask.
+
+    On the CPU: host numpy below ``HOST_FLOP_CUTOFF`` (the JAX package's
+    host path), the plain version above it over the device branch's
+    padding.  On the card: that padding (the packed column stays where it
+    is; the adjacency, bitmap and entries go up) and one kernel launch."""
+    dev = resolve_device(device)
+    q = np.asarray(q, np.float32)
+    nbr = np.asarray(neighbors, np.int32)
+    mask = np.asarray(mask, bool)
+    nq, n = len(q), len(nbr)
+    beam = int(min(beam, fs_kernel.KMAX))
+    hops = int(hops)
+    empty = (np.full((nq, beam), np.inf, np.float32),
+             np.full((nq, beam), -1, np.int64),
+             np.zeros(nq, np.int64))
+    ent = np.asarray(entries, np.int64).ravel()
+    ent = ent[(ent >= 0) & (ent < n)]
+    if n == 0 or beam == 0 or len(ent) == 0 or not mask.any():
+        return empty
+    pks64 = np.asarray(_as_host(pks)[:n], np.int64).ravel()
+    if dev.type == "cuda":
+        return _graph_kernel(q, x, nbr, ent, mask, pks64, beam, hops, dev)
+    xh = np.asarray(_as_host(x)[:n], np.float32)
+    work = nq * (hops * beam * nbr.shape[1] + len(ent)) * xh.shape[1]
+    if work < HOST_FLOP_CUTOFF:
+        return _graph_host(q, xh, nbr, ent, mask, pks64, beam, hops)
+    npad = _graph_rows(n)
+    xp = np.zeros((npad, xh.shape[1]), np.float32)
+    xp[:n] = xh
+    qp, nbp, ep, mq, pk32 = _graph_padded(q, nbr, ent, mask, pks64, npad)
+    d2, _, ids, vis = (t.numpy() for t in ref.graph_search_topk_ref(
+        *(torch.from_numpy(a) for a in (qp, xp, nbp, ep, mq, pk32)),
+        beam, hops))
+    return _graph_result(d2, ids, vis, nq, nq * (npad // 32) * 4,
+                         "graph_search.ref", qp.shape + xp.shape
+                         + (beam, hops))
+
+
+def _graph_kernel(q: np.ndarray, x, nbr: np.ndarray, ent: np.ndarray,
+                  mask: np.ndarray, pks64: np.ndarray, beam: int, hops: int,
+                  dev: torch.device):
+    """The card's path (the JAX package's Pallas branch): its padding of
+    queries, adjacency, bitmap, pks and entries, one kernel launch.  The
+    packed column stays where ``pack_segments`` put it: its rows are a
+    BLOCK_N multiple >= n, fewer than the bucketed count when n is not a
+    power-of-two multiple, which changes nothing but the number of
+    all-zero visited words (pad rows are unreachable).  Charged with the
+    Pallas branch's shape key and bytes.  On a CPU ``dev`` the wrapper
+    takes its plain version."""
+    n, d = len(nbr), int(np.shape(x)[1])
+    npad = _graph_rows(n)
+    if isinstance(x, torch.Tensor):
+        xt = x.to(dev)
+    else:
+        xt = torch.zeros((npad, d), dtype=torch.float32, device=dev)
+        xt[:n] = _on(np.asarray(x, np.float32)[:n], dev)
+    qp, nbp, ep, mq, pk32 = _graph_padded(q, nbr, ent, mask, pks64,
+                                          xt.shape[0])
+    nbt, ept, mqt, pkt = (_on(a, dev) for a in (nbp, ep, mq, pk32))
+    d2, _, ids, vis = gs_kernel.graph_search_topk(
+        _on(qp, dev), xt, nbt, ept, mqt, pkt, beam, hops)
+    return _graph_result(_host(d2), _host(ids), _host(vis), len(q),
+                         len(q) * (npad // 32) * 4, "graph_search.cuda",
+                         qp.shape + (npad, d) + (beam, hops))
+
+
+# ---------------------------------------------------------------------------
+# top-k merge
+# ---------------------------------------------------------------------------
+
+def merge_topk_batch(scores: np.ndarray, ids: np.ndarray, k: int,
+                     device: Device = "cuda"
+                     ) -> Tuple[np.ndarray, np.ndarray]:
+    """Cross-shard top-k merge for a query batch (the sharded read path's
+    combine step).
+
+    scores (nq, s, kk) fp32 and ids (nq, s, kk) int64 hold each query's s
+    per-shard candidate lists; empty slots carry score=+inf (their id is
+    ignored).  Returns ((nq, k) fp32, (nq, k) int64) in ascending
+    (score, id) order, with id=-1 marking slots beyond a query's candidate
+    count.  ONE dispatch for the whole batch.
+
+    On the CPU: the JAX package's default backend, the exact host merge
+    (``lexsort((id, score))``).  On the card: its Pallas branch, one
+    launch of the batched merge kernel; only the (nq, k) winners come back.
+    The kernel's tie-break key is int32, so ids outside [0, 2^31-1) take
+    the exact host merge instead, as the JAX package routes them."""
+    dev = resolve_device(device)
+    scores = np.asarray(scores, np.float32)
+    ids64 = np.asarray(ids, np.int64)
+    nq, s, kk = scores.shape
+    k = int(min(k, s * kk))
+    out_d = np.full((nq, k), np.inf, np.float32)
+    out_i = np.full((nq, k), -1, np.int64)
+    if k == 0 or nq == 0:
+        return out_d, out_i
+    if dev.type == "cuda":
+        sentinel = int(fs_kernel.SENTINEL)
+        real = ids64[np.isfinite(scores)]
+        if not len(real) or (int(real.min()) >= 0
+                             and int(real.max()) < sentinel):
+            return _merge_kernel(scores, ids64, k, dev)
+    flat_d = scores.reshape(nq, -1)
+    flat_i = ids64.reshape(nq, -1)
+    for qi in range(nq):
+        order = np.lexsort((flat_i[qi], flat_d[qi]))[:k]
+        order = order[np.isfinite(flat_d[qi][order])]
+        out_d[qi, :len(order)] = flat_d[qi][order]
+        out_i[qi, :len(order)] = flat_i[qi][order]
+    _dispatched(out_d.nbytes + out_i.nbytes, "topk_merge_batch.ref",
+                scores.shape + (k,))
+    return out_d, out_i
+
+
+def _merge_kernel(scores: np.ndarray, ids64: np.ndarray, k: int,
+                  dev: torch.device) -> Tuple[np.ndarray, np.ndarray]:
+    """The card's path (the JAX package's Pallas branch): ids of empty
+    slots become SENTINEL, one launch, the (nq, k) winners come back (the
+    plain version on a CPU ``dev``)."""
+    sentinel = int(fs_kernel.SENTINEL)
+    idp = np.where(np.isfinite(scores), ids64, sentinel).astype(np.int32)
+    d, i = tk_kernel.batched_topk_merge(_on(scores, dev), _on(idp, dev), k)
+    d, i = _host(d), _host(i).astype(np.int64)
+    _dispatched(d.nbytes + i.nbytes, "topk_merge_batch.pallas",
+                scores.shape + (k,))
+    return d, np.where(np.isfinite(d), i, -1)
+
+
+def merge_topk(dists: np.ndarray, ids: np.ndarray, k: int,
+               device: Device = "cuda") -> Tuple[np.ndarray, np.ndarray]:
+    """Merge S per-segment top-k lists (s, kk) -> global (k,): the k
+    smallest distances, ties broken by flattened position.  On the CPU the
+    plain version (the JAX package's default backend runs its oracle); on
+    the card one launch of the single-list merge kernel."""
+    dev = resolve_device(device)
+    dists = np.asarray(dists, np.float32)
+    ids = np.asarray(ids, np.int64)
+    k = min(k, dists.size)
+    if k == 0:
+        return np.zeros((0,), np.float32), np.zeros((0,), np.int64)
+    d, i = tk_kernel.topk_merge(_on(dists, dev), _on(ids, dev), k)
+    d, i = _host(d), _host(i)
+    tag = "topk_merge.pallas" if dev.type == "cuda" else "topk_merge.ref"
+    # the JAX package hands its ids back as int32 (no x64): its byte count
+    _dispatched(d.nbytes + d.size * 4, tag, dists.shape + (k,))
+    return d, i

@@ -13,6 +13,7 @@ admitted points per unit^2), where |q|^2 + |x|^2 is about 1e4 and the
 from __future__ import annotations
 
 import importlib.util
+import types
 from pathlib import Path
 
 import numpy as np
@@ -187,3 +188,89 @@ def test_quantized_templates_pair_each_draw_with_its_exact_twin():
         np.testing.assert_array_equal(quant.ranks[0].q, exact.ranks[0].q)
         np.testing.assert_array_equal(spec[1], exact.ranks[0].q)
         assert (mask_fn is None) == (name == "g6")
+
+
+def test_graph_templates_take_their_recall_target():
+    data = cs.TracyData(8, seed=5)
+    data.batch(0, 50)
+    data.finish()
+    gt = cs.quantized_templates(cs.templates(data), cs.GRAPH_RECALL)
+    for name in ("g6", "g8", "g13"):
+        quant, exact, _, _ = gt[name]()
+        assert quant.recall_target == cs.GRAPH_RECALL == 0.95
+        assert exact.recall_target is None
+
+
+def test_popcounts_count_each_querys_visited_rows():
+    vis = torch.zeros((3, 4), dtype=torch.int32)
+    vis[0, 0] = 0b1011
+    vis[1, 3] = -2 ** 31                    # bit 31 of the last word
+    vis[2] = -1                             # every row of 128
+    assert cs.popcounts(vis).tolist() == [3, 1, 128]
+
+
+def test_graph_compare_catches_one_flipped_bit():
+    out = [torch.tensor([[1.0, float("inf")]]),
+           torch.tensor([[3, 2 ** 31 - 1]], dtype=torch.int32),
+           torch.tensor([[5, 2 ** 31 - 1]], dtype=torch.int32),
+           torch.tensor([[6]], dtype=torch.int32)]
+    cs.graph_compare(out, [t.clone() for t in out], "same")
+    for i in range(4):
+        bad = [t.clone() for t in out]
+        flat = bad[i].view(-1)
+        if bad[i].dtype == torch.float32:
+            flat[0] = torch.nextafter(flat[0], torch.tensor(2.0))
+        else:
+            flat[0] ^= 1
+        with pytest.raises(cs.SmokeFailure):
+            cs.graph_compare(out, bad, "one bit")
+
+
+def test_merge_and_graph_cases_have_ties_pads_and_padding():
+    rng = np.random.default_rng(6)
+    d, ids = cs.merge_case(rng, 4, 3, 50, "ties")
+    assert len(np.unique(d)) < d.size // 10          # many equal scores
+    assert len(np.unique(ids)) == ids.size
+    d, ids = cs.merge_case(rng, 4, 3, 50, "pads")
+    assert np.isinf(d).any() and (ids[np.isinf(d)] == 2 ** 31 - 1).all()
+    q, x, nbr, ent, mask, pks = cs.graph_case(rng, 8, 512, 16, 8, 5, "ints")
+    assert (x == np.round(x)).all() and (nbr == -1).any()
+    assert not mask[0].any() and len(np.unique(pks)) < 512
+    assert (ent[0, 5:] == 2 ** 31 - 1).all() and ent.shape == (1, 8)
+
+
+def test_row_bound_takes_the_larger_of_bytes_and_operations():
+    bound, by = cs.row_bound(cs.HBM_BYTES_PER_S * 1e-3, 0.0)
+    assert by == "bytes" and bound == pytest.approx(1.0)
+    bound, by = cs.row_bound(1.0, cs.FP32_FLOPS * 2e-3)
+    assert by == "operations" and bound == pytest.approx(2.0)
+
+
+def test_add_counts_accumulates_the_launches_since_the_reset():
+    from repro_torch.kernels import graph_search, topk_merge
+    total = dict.fromkeys(cs.SOURCES, 0)
+    cs.reset_counts()
+    topk_merge.batched_launches.add()
+    graph_search.launches.add()
+    graph_search.launches.add()
+    c = cs.add_counts(total)
+    assert c["batched_topk_merge"] == 1 and c["graph_search_topk"] == 2
+    cs.reset_counts()
+    cs.add_counts(total)
+    assert total["graph_search_topk"] == 2 and total["topk_merge"] == 0
+    assert sorted(cs.kernel_counts()) == sorted(cs.SOURCES)
+
+
+def test_device_busy_is_the_union_of_device_intervals():
+    """Overlapping and nested device events count once; host events not
+    at all."""
+    from torch.autograd import DeviceType
+
+    def ev(a, b, dev=DeviceType.CUDA):
+        return types.SimpleNamespace(
+            device_type=dev, time_range=types.SimpleNamespace(start=a, end=b))
+    prof = types.SimpleNamespace(events=lambda: [
+        ev(0, 10), ev(5, 12), ev(6, 7), ev(20, 25), ev(0, 100,
+                                                       DeviceType.CPU)])
+    assert cs.device_busy_us(prof) == 17
+    assert cs.device_busy_us(types.SimpleNamespace(events=lambda: [])) == 0

@@ -42,10 +42,14 @@
    visited words' popcount; recall@10 against the exact dispatch and a
    widened beam against it bitwise, printed.
 8. Holds each kernel against its plain version on the inputs the paths
-   gave it, times both and one PyTorch library call where one computes
-   the same function, traces one more t6, g6 and t2 batch and one sharded
-   t6 batch for the device's busy share, and prints one JSON line
-   ``{"kernels": [...]}``; the last line is
+   gave it (ivf_scan at every path shape), times both and one PyTorch
+   library call where one computes the same function (the quantized scan,
+   ivf_scan at its three most-launched and two most frequent single-query
+   shapes, pq_adc and its library call, and the merges by their device
+   time in a profiler trace, beside their CUDA-event time), traces one
+   more t6, g6 and t2 batch and one sharded t6 batch for the device's busy
+   share, and prints one JSON line ``{"kernels": [...]}``; the last line
+   is
    ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}``.
 
 Each path's launch counts are zeroed just before it and read just after;
@@ -103,6 +107,11 @@ SOURCES = {
     "topk_merge": ("src/repro_torch/kernels/csrc/topk_merge.cu",
                    "src/repro/kernels/topk_merge.py:38"),
 }
+
+
+# the quantized scan's four launches a call (csrc/quantized_scan.cu)
+QSCAN_KERNELS = ("qscan_witness", "qscan_threshold", "qscan_scan",
+                 "qscan_select")
 
 
 class SmokeFailure(RuntimeError):
@@ -182,12 +191,13 @@ def cuda_ms(fn, reps: int = 20, warm: int = 3) -> float:
     return start.elapsed_time(end) / reps
 
 
-def kernel_ms(fn, kernel: str, reps: int = 20, warm: int = 3) -> float:
-    """Mean device time of the kernel named ``kernel`` over ``reps`` calls
-    of ``fn``, from a ``torch.profiler`` trace: the kernel's own time,
-    without the wrapper's allocations and the host's launch cost that a
-    few-microsecond kernel's CUDA-event time is mostly made of.  Fails if
-    the trace holds no launch of it."""
+def kernel_ms(fn, kernel, reps: int = 20, warm: int = 3) -> float:
+    """Mean device time per call of ``fn`` of the kernel named ``kernel``
+    (or of each of a tuple of names, summed; None: every kernel the call
+    launches) over ``reps`` calls, from a ``torch.profiler`` trace: the
+    kernels' own time, without the wrapper's allocations and the host's
+    launch cost that a few-microsecond kernel's CUDA-event time is mostly
+    made of.  Fails if a named kernel did not launch once a call."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -199,12 +209,29 @@ def kernel_ms(fn, kernel: str, reps: int = 20, warm: int = 3) -> float:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    spans = [e.time_range.end - e.time_range.start for e in prof.events()
-             if getattr(e, "device_type", None) == DeviceType.CUDA
-             and kernel in e.name]
-    check(len(spans) == reps, f"the trace holds {len(spans)} launches of "
-          f"{kernel}, not {reps}")
-    return sum(spans) / reps / 1e3
+    spans = [(e.name, e.time_range.end - e.time_range.start)
+             for e in prof.events()
+             if getattr(e, "device_type", None) == DeviceType.CUDA]
+    return span_ms(spans, kernel, reps)
+
+
+def span_ms(spans, kernel, reps: int) -> float:
+    """Mean milliseconds per call of the (name, microseconds) device spans
+    of ``reps`` calls that belong to ``kernel`` (a name, a tuple of names,
+    or None for every kernel but copies and fills).  Each named kernel must
+    hold exactly ``reps`` spans."""
+    if kernel is None:
+        us = [t for n, t in spans if not n.startswith(("Memcpy", "Memset"))]
+        check(len(us) >= reps, f"the trace holds {len(us)} kernel spans for "
+              f"{reps} calls")
+        return sum(us) / reps / 1e3
+    total = 0.0
+    for name in ((kernel,) if isinstance(kernel, str) else kernel):
+        us = [t for n, t in spans if name in n]
+        check(len(us) == reps, f"the trace holds {len(us)} launches of "
+              f"{name}, not {reps}")
+        total += sum(us)
+    return total / reps / 1e3
 
 
 def row_bound(nbytes: float, flops: float):
@@ -380,6 +407,21 @@ def ivf_compare(q, x, out, plain) -> float:
     return float(np.abs(o[fin] - p[fin]).max())
 
 
+# ivf_scan edge shapes (nq, n, d, 1e30 pad rows): every launch path, query
+# counts on both sides of the skinny path's 8 (1, 8, 9, 64, 2048), ragged
+# n, d in {2, 7, 16, 100, 128}
+IVF_EDGE = [(3, 1000, 100, False), (1, 128, 7, False), (9, 512, 128, True),
+            (2048, 512, 128, True), (1, 1537, 128, True), (8, 4099, 2, False),
+            (8, 512, 16, True), (64, 700, 16, True), (2048, 333, 2, False),
+            (8, 2048, 128, True)]
+
+
+def ivf_paths(shapes) -> set:
+    """The ivf_scan launch paths a list of (nq, n, d, ...) shapes reaches."""
+    from repro_torch.kernels import ivf_scan
+    return {ivf_scan.launch_path(s[0], s[1], s[2]) for s in shapes}
+
+
 def edge_checks(dev, errs) -> None:
     import torch
     from repro_torch.kernels import bitmap_filter, fused_scan, ivf_scan, ref
@@ -398,8 +440,9 @@ def edge_checks(dev, errs) -> None:
         log(f"edge fused_scan_topk nq={nq} n={n} d={d} mask={kind} "
             f"ties={dup}: max|dd2|={err:.3g} tie swaps={swaps} "
             f"median tol/kth d2={power:.3g}")
-    for nq, n, d, padded in [(3, 1000, 100, False), (1, 128, 7, False),
-                             (9, 512, 128, True), (2048, 512, 128, True)]:
+    check(ivf_paths(IVF_EDGE) == set(ivf_scan.PATHS),
+          "the ivf_scan edge shapes miss a launch path")
+    for nq, n, d, padded in IVF_EDGE:
         q = rng.normal(size=(nq, d)).astype(np.float32)
         x = rng.normal(size=(n, d)).astype(np.float32)
         if padded:                # host padding rows, as ops pads them
@@ -412,8 +455,8 @@ def edge_checks(dev, errs) -> None:
             check(bool(torch.isinf(out[:, n // 3:]).all()),
                   "1e30 padding rows must come out +inf")
         errs["ivf_scan"] = max(errs["ivf_scan"], err)
-        log(f"edge ivf_scan nq={nq} n={n} d={d} padded={padded}: "
-            f"max|dd2|={err:.3g}")
+        log(f"edge ivf_scan nq={nq} n={n} d={d} padded={padded} "
+            f"({ivf_scan.launch_path(nq, n, d)}): max|dd2|={err:.3g}")
     for n, c in [(4099, 3), (1_000_003, 1), (1025, 2)]:
         cols = rng.uniform(0, 10, (n, c)).astype(np.float32)
         cols[::97] = np.nan
@@ -465,7 +508,9 @@ def adc_edge_checks(dev, errs) -> None:
     host = torch.device("cpu")
     for nq, n, m, kind in [(8, 1000, 8, "partial"), (13, 1537, 16, "holes"),
                            (16, 1, 4, "full"), (16, 2048, 8, "tile_empty"),
-                           (8, 1100, 8, "dup"), (10, 700, 4, "partial")]:
+                           (8, 1100, 8, "dup"), (10, 700, 4, "partial"),
+                           (8, 262_144, 8, "partial"), (8, 262_144, 8, "dup"),
+                           (16, 131_072, 8, "holes")]:
         q, codes, books, mask, pks = adc_case(rng, nq, n, m, kind)
         lut = ops.adc_lut(q, books)
         args, _ = ops.quantized_kernel_args(lut, codes, mask, pks, dev)
@@ -1308,10 +1353,16 @@ def install_recorder(record):
         return rec
 
     def per_shape(kind):
+        counts = record[kind + "_calls"] = {}
+
         def rec(x, y):
             key = tuple(x.shape) + tuple(y.shape)
-            hit = record[kind].get(key)
-            if hit is None and len(record[kind]) < 64:
+            counts[key] = counts.get(key, 0) + 1
+            # inputs of the first 64 shapes, and of 16 more single-query
+            # ivf_scan shapes (the few launches of the probes come late)
+            held = len(record[kind])
+            if key not in record[kind] and (held < 64 or (
+                    kind == "ivf" and x.shape[0] <= 8 and held < 80)):
                 record[kind][key] = [x.clone(), y.clone(), 0]
             if key in record[kind]:
                 record[kind][key][2] += 1
@@ -1339,7 +1390,7 @@ def install_recorder(record):
 
 def measure(record, orig, launches, errs, dev):
     import torch
-    from repro_torch.kernels import ref
+    from repro_torch.kernels import ivf_scan, ref
     out = []
     # fused scan: every template's call on the paths, each timed
     fs_rows = {}
@@ -1384,8 +1435,27 @@ def measure(record, orig, launches, errs, dev):
         if not record[kind]:
             continue
         best = None
-        for key, (x, y, calls) in sorted(record[kind].items(),
-                                         key=lambda kv: -kv[1][2]):
+        # the paths' most frequent shapes, timed: ivf_scan's three and its
+        # two most frequent single-query ones, by device time and CUDA
+        # events; pq_adc's one by device time (and its library call too);
+        # bitmap_filter's one by CUDA events
+        calls_of = record[kind + "_calls"]
+        ranked = sorted(record[kind].items(), key=lambda kv: -calls_of[kv[0]])
+        timed = {k for k, _ in ranked[:3 if kind == "ivf" else 1]}
+        if kind == "ivf":
+            timed |= {k for k, _ in [kv for kv in ranked
+                                     if kv[0][0] <= 8][:2]}
+            log(f"ivf_scan: {len(calls_of)} path shapes, "
+                f"{sum(calls_of.values())} launches; inputs held for "
+                f"{len(record['ivf'])}")
+            for key, n in sorted(calls_of.items(), key=lambda kv: -kv[1]):
+                if key not in record["ivf"]:
+                    log(f"ivf_scan path shape {key}: {n} launches, "
+                        f"{ivf_scan.launch_path(key[0], key[2], key[1])} "
+                        f"path, "
+                        f"inputs not held")
+        for key, (x, y, _) in ranked:
+            calls = calls_of[key]
             o = orig[kind](x, y)
             torch.cuda.synchronize()
             if kind == "ivf":
@@ -1396,6 +1466,7 @@ def measure(record, orig, launches, errs, dev):
                 flops = 2 * nq * n * d
                 lib = (lambda x=x, y=y: torch.cdist(x, y).square())
                 plain = (lambda x=x, y=y: ref.ivf_scan_ref(x, y))
+                path = ivf_scan.launch_path(nq, n, d)
             elif kind == "pq":
                 check(same_bits(o, ref.pq_adc_ref(x, y)), f"pq_adc main-path "
                       f"input {key}: differs from the plain version")
@@ -1406,6 +1477,7 @@ def measure(record, orig, launches, errs, dev):
                 lib = (lambda x=x, y=y:
                        torch.gather(y, 1, x.T.long()).sum(dim=0))
                 plain = (lambda x=x, y=y: ref.pq_adc_ref(x, y))
+                path = None
             else:
                 want = ref.bitmap_filter_ref(x, y)
                 err = float((o.bool() != want).sum())
@@ -1415,18 +1487,37 @@ def measure(record, orig, launches, errs, dev):
                 nbytes, flops = 4 * n * c + n + 8 * c, 2 * n * c
                 lib = None
                 plain = (lambda x=x, y=y: ref.bitmap_filter_ref(x, y))
+                path = None
             errs[name] = max(errs[name], err)
+            if kind == "ivf":
+                log(f"ivf_scan path shape {key}: {calls} launches, {path} "
+                    f"path, max|dd2| {err:.3g}")
+            if key not in timed:
+                continue
+            e_ms = cuda_ms(lambda x=x, y=y: orig[kind](x, y))
+            k_ms = e_ms if kind == "bitmap" else kernel_ms(
+                lambda x=x, y=y: orig[kind](x, y), name)
+            bound, by = row_bound(nbytes, flops)
+            log(f"kernel {name} {key} ({calls} path launches at this shape"
+                f"{', ' + path + ' path' if path else ''}): kernel "
+                f"{k_ms:.4f} ms{' device time' if kind != 'bitmap' else ''}"
+                f" ({e_ms:.4f} ms a call by CUDA events), bound "
+                f"{bound:.5f} ms ({by})")
             if best is None:          # the main path's most frequent shape
-                k_ms = cuda_ms(lambda x=x, y=y: orig[kind](x, y))
                 p_ms = cuda_ms(plain)
-                l_ms = cuda_ms(lib) if lib is not None else None
-                bound, by = row_bound(nbytes, flops)
+                if lib is None:
+                    l_ms = None
+                elif kind == "pq":
+                    l_ms = kernel_ms(lib, None)
+                    log(f"kernel pq_adc library (gather-sum) {key}: "
+                        f"{l_ms:.4f} ms device time ({cuda_ms(lib):.4f} ms "
+                        f"a call by CUDA events)")
+                else:
+                    l_ms = cuda_ms(lib)
                 best = (name, k_ms, p_ms, bound, by, l_ms)
-                log(f"kernel {name} {key} ({calls} main-path launches at "
-                    f"this shape): kernel {k_ms:.4f} ms, plain {p_ms:.4f} "
-                    f"ms, library {l_ms if l_ms is None else round(l_ms, 4)}"
-                    f" ms, bound {bound:.5f} ms ({by})")
-        log(f"kernel {name}: {len(record[kind])} main-path shapes held "
+                log(f"kernel {name} {key}: plain {p_ms:.4f} ms, library "
+                    f"{l_ms if l_ms is None else round(l_ms, 4)} ms")
+        log(f"kernel {name}: {len(record[kind])} path shapes held "
             f"against the plain version, max abs err {errs[name]:.3g}")
         out.append(best)
     if record["merge"]:
@@ -1566,7 +1657,14 @@ def measure_quantized(record, orig):
         nbytes = (rows_any * (m + 4) + a[2].numel() + a[0].numel() * 4
                   + nq * 128 * 12)
         flops = m * pairs
-        k_ms = cuda_ms(lambda: orig["quantized"](*a))
+        e_ms = cuda_ms(lambda: orig["quantized"](*a))
+        stages = {k: kernel_ms(lambda: orig["quantized"](*a), k)
+                  for k in QSCAN_KERNELS}
+        k_ms = kernel_ms(lambda: orig["quantized"](*a), QSCAN_KERNELS)
+        log(f"kernel quantized_scan_topk {tname}: device time "
+            + ", ".join(f"{k} {v:.4f}" for k, v in stages.items())
+            + f" ms; {k_ms:.4f} ms in all ({e_ms:.4f} ms a call by CUDA "
+            f"events)")
         p_ms = cuda_ms(lambda: quantized_scan.plain(*a[:5]), reps=3, warm=1)
         lut3 = a[0].view(nq, m, 256)
 
@@ -1578,7 +1676,8 @@ def measure_quantized(record, orig):
         l_ms = cuda_ms(library, reps=3, warm=1)
         bound, by = row_bound(nbytes, flops)
         row = ("quantized_scan_topk", k_ms, p_ms, bound, by, l_ms)
-        log(f"kernel quantized_scan_topk {tname}: kernel {k_ms:.4f} ms, plain "
+        log(f"kernel quantized_scan_topk {tname}: kernel {k_ms:.4f} ms "
+            f"device time, plain "
             f"{p_ms:.4f} ms, gather-sum+where+topk {l_ms:.4f} ms, bound "
             f"{bound:.4f} ms ({by}, {nbytes} bytes)")
     check(row is not None, "g6 never reached the quantized scan")

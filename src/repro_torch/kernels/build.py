@@ -36,11 +36,11 @@ _L = ctypes.c_longlong
 SIGNATURES = {
     "fused_scan": {"fused_scan_topk_launch":
                    [_P] * 12 + [_I, _I, _L, _I, _I, _I, _P]},
-    "ivf_scan": {"ivf_scan_launch": [_P, _P, _P, _I, _I, _I, _P]},
+    "ivf_scan": {"ivf_scan_launch": [_P, _P, _P, _I, _I, _I, _I, _L, _P]},
     "bitmap_filter": {"bitmap_filter_launch":
                       [_P, _P, _P, _L, _I, _I, _P]},
     "quantized_scan": {"quantized_scan_topk_launch":
-                       [_P] * 12 + [_I, _I, _L, _I, _I, _I, _L, _P]},
+                       [_P] * 17 + [_I, _I, _L, _I, _I, _I, _L, _P]},
     "pq_adc": {"pq_adc_launch": [_P, _P, _P, _L, _I, _P]},
     "topk_merge": {"batched_topk_merge_launch":
                    [_P, _P, _P, _P, _I, _L, _I, _L, _P],

@@ -12,25 +12,45 @@
 // inputs give the same bits (this file must not be built with fast-math,
 // which would let the compiler reassociate it).
 //
-// What bounds it on Hopper: bytes.  A row costs m bytes of codes, one
-// byte of bitmap per query and 4 bytes of pk, against m shared-memory
-// lookups and adds per admitted (query, row) pair; at the main path's
-// shape (8 queries x 2 M rows, m = 8) that is ~16 MB of codes and ~16 MB
-// of bitmap read once.  The random LUT gathers conflict in shared-memory
-// banks; that is left for a later change.
-//
-// Design, the two passes of fused_scan.cu:
-//   pass 1: grid (query tiles of 8, chunks of kept blocks).  The tile's 8
-//           LUTs (8 x m x 256 fp32, 64 KB at m = 8) sit in dynamic shared
-//           memory for the whole chunk.  For each 256-row slice of a kept
-//           block the codes are staged as uint8 in shared memory (read
-//           through the kept block ids over the device-resident codes:
-//           no compacted copy is made), thread t sums row t's ADC for the
-//           8 queries whose mask admits it, and warp w offers query w's
-//           admitted candidates to its register top-128 list
-//           (topk_list.cuh).  Blocks the occupancy grid marks empty are
-//           skipped.
-//   pass 2: topk_list.cuh's merge of the chunks' sorted lists.
+// What bounds it on Hopper: bytes (~16 MB of codes and ~16 MB of bitmap at
+// the main path's 8 queries x 2 M rows, m = 8) and, above them, the
+// shared-memory LUT gathers, whose random codes conflict in banks.  The
+// earlier design (a register top-128 list per 8-block chunk and query,
+// then one warp per query merging 512 chunk lists) spent its time, as
+// measured on the card (PERF.md), on the lists' serialized inserts (14 %
+// of all candidates: every list started empty) and on the merge walking
+// its lists one after another.  This one keeps almost every candidate
+// away from any list, in four launches:
+//   witness: grid (query tiles of 8, chunks of kept blocks).  Each block
+//           computes the ADC of a sample (32 rows of each of the chunk's
+//           first 16 kept blocks) from the LUTs in global memory and
+//           publishes, per query, its 2 smallest admitted values as
+//           order-preserving keys; it also writes its share of the tile's
+//           LUTs in the scan's shared-memory layout.
+//   threshold: one warp per query: tau >= the 128th smallest witness (a
+//           binary search over keys), +inf with fewer than 128.  128
+//           distinct admitted rows have adc <= tau, so a row with adc >
+//           tau cannot be among the 128 best, while a row with adc == tau
+//           still can (by pk): the filter below is adc <= tau.
+//   scan:   grid (query tiles, chunks), 3 blocks an SM at m = 8, no block
+//           barrier in the loop.  The tile's LUTs sit in shared memory as
+//           [j][code][query] (one 16-byte cp.async copy), so a row's 8
+//           lookups for a j are two float4 reads; each warp streams 32 rows
+//           of every 256-row slice, its codes through a two-slot cp.async
+//           ring and its bitmap bytes one slice ahead in registers.  A row
+//           with adc <= tau goes to its query's region of the chunk (128
+//           slots); if more arrive, that query's warp rescans the chunk
+//           through a register top-128 list (topk_list.cuh).  Each region
+//           is then appended to the query's candidate list.
+//   select: one block per query: a K at or just above the 128th smallest
+//           candidate ADC (a binary search), then a bitonic sort of the
+//           candidates with adc <= K by the exact (adc, pk, row) key, pks
+//           fetched here (past 2,048 of them: all, 2,048 at a time).
+// The candidates hold every row of the true top-128 (the filter drops none
+// of them, and each is among its chunk's 128 best), so the result is the
+// earlier kernel's bit for bit.  With fewer than 128 witnesses tau is +inf
+// and every chunk with more than 128 admitted rows takes the rescan: the
+// earlier kernel's list behaviour, still exact.
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -41,123 +61,744 @@ namespace {
 
 constexpr int kBlockQ = 8;      // queries per tile (BLOCK_Q)
 constexpr int kBlockN = 512;    // rows per kept block id (BLOCK_N)
-constexpr int kSlice = 256;     // rows per staged slice: one per thread
-constexpr int kThreads = 256;   // 8 warps: warp w owns query w's list
+constexpr int kSlice = 256;     // rows per scan slice: one per thread
+constexpr int kThreads = 256;   // 8 warps, 32 rows of a slice each
+constexpr int kWarps = kThreads / 32;
 constexpr int kCodes = 256;     // codewords per subquantizer
+constexpr int kWit = 2;         // witnesses per (chunk, query)
+constexpr int kSampleRows = 32;     // sampled rows of a kept block
+constexpr int kSampleBlocks = 16;   // kept blocks sampled per chunk
+constexpr int kSample = kSampleRows * kSampleBlocks;   // 2 rows a thread
+constexpr int kMaxChunks = 512;
+constexpr int kMaxWit = kMaxChunks * kWit;   // witnesses per query
+constexpr int kTauThreads = 256;   // 8 warps: one query each
+constexpr int kSelect = 2048;   // select's sort tile
+constexpr int kSelectThreads = 256;
+constexpr int kRegKeys = 32;    // select: candidates a thread holds
+constexpr unsigned kNone = 0xffffffffu;   // "no witness" key
+constexpr unsigned kInfKey = 0xff800000u; // the key of +inf
+// A threshold search stops once its bracket spans at most this many keys:
+// the bound it returns then lies within 2^-11 (relative) of the exact
+// k-th value, which only lets a few more candidates through.
+constexpr unsigned kSlack = 4096;
 
-// dynamic shared memory: the size of pass 1's carve-out below.  The
-// wrapper states the same sum (quantized_scan.py's smem_bytes), refuses an
-// m whose need exceeds the card's per-block limit, and hands its sum to the
-// launcher, which refuses it unless it equals this one.
+// Dynamic shared memory of a scan block: the tile's LUTs, each warp's
+// two-slot ring of its 32 rows' codes, and per query a candidate count
+// and an overflow flag.  The wrapper states the same sum
+// (quantized_scan.py's smem_bytes), refuses an m whose need exceeds the
+// card's per-block limit, and hands its sum to the launcher, which
+// refuses it unless it equals this one.
 inline size_t smem_bytes(int m) {
-  return (size_t)kBlockQ * m * kCodes * sizeof(float)   // lut_s
-         + (size_t)kBlockQ * kSlice * sizeof(float)     // dist_s
-         + (size_t)kSlice * m                           // codes_s
-         + (size_t)kBlockQ * kSlice;                    // ok_s
+  return (size_t)kBlockQ * m * kCodes * sizeof(float)        // lut_s
+         + (size_t)kWarps * 2 * 32 * m                       // code rings
+         + (size_t)2 * kBlockQ * sizeof(int);                // counts, flags
 }
 
+// float -> uint32 with the same order (-0 taken as +0)
+__device__ __forceinline__ unsigned ord_key(float f) {
+  const unsigned u = __float_as_uint(f == 0.f ? 0.f : f);
+  return (u & 0x80000000u) ? ~u : (u | 0x80000000u);
+}
+
+__device__ __forceinline__ float key_float(unsigned k) {
+  return __uint_as_float((k & 0x80000000u) ? (k & 0x7fffffffu) : ~k);
+}
+
+// Where lut[q, j, code] sits in shared memory: entry jc = j * 256 + code
+// holds the 8 queries' values in 32 bytes, its two float4 halves swapped
+// when bit 2 of the code is set, so that the first float4 reads of a warp
+// spread over all 8 16-byte bank groups instead of 4.
+__device__ __forceinline__ int lut_pos(int jc, int q) {
+  return jc * kBlockQ + ((((q >> 2) ^ (jc >> 2)) & 1) << 2) + (q & 3);
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n"
+               :: "r"(d), "l"(src));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N));
+}
+
+// The tile's LUTs, already laid out at lut_pos in global memory (8 * m *
+// 256 floats, 16-byte aligned), into shared memory: 16-byte cp.async
+// copies, all in flight at once.
+__device__ __forceinline__ void stage_lut(float* lut_s,
+                                          const float* __restrict__ lut_g,
+                                          int m, int tid) {
+  const int n4 = kBlockQ * m * kCodes / 4;
+  for (int i = tid; i < n4; i += kThreads)
+    cp_async16(lut_s + 4 * i, lut_g + 4 * i);
+  cp_async_commit();
+  cp_async_wait<0>();
+}
+
+// One row's codes and admit bits: the codes of M in {4, 8, 16} in one
+// vector load (M = 0: any m, read byte by byte in adc8), bit q of ok set
+// when the mask admits the row for query q0 + q.
+struct RowIn {
+  uint32_t cw[4];
+  uint32_t ok;
+};
+
+__device__ __forceinline__ uint32_t load_ok(const uint8_t* __restrict__ mask,
+                                            long long prow, long long n_mask,
+                                            long long q0) {
+  uint32_t ok = 0;
+  if (prow < n_mask) {
+#pragma unroll
+    for (int q = 0; q < kBlockQ; ++q)
+      ok |= (__ldg(mask + (q0 + q) * n_mask + prow) != 0 ? 1u : 0u) << q;
+  }
+  return ok;
+}
+
+template <int M>
+__device__ __forceinline__ void load_row(RowIn& r,
+                                         const uint8_t* __restrict__ codes,
+                                         const uint8_t* __restrict__ mask,
+                                         long long prow, long long n_mask,
+                                         long long q0) {
+  if (M == 4) {
+    r.cw[0] = __ldg(reinterpret_cast<const uint32_t*>(codes) + prow);
+  } else if (M == 8) {
+    const uint2 v = __ldg(reinterpret_cast<const uint2*>(codes) + prow);
+    r.cw[0] = v.x;
+    r.cw[1] = v.y;
+  } else if (M == 16) {
+    const uint4 v = __ldg(reinterpret_cast<const uint4*>(codes) + prow);
+    r.cw[0] = v.x;
+    r.cw[1] = v.y;
+    r.cw[2] = v.z;
+    r.cw[3] = v.w;
+  }
+  r.ok = load_ok(mask, prow, n_mask, q0);
+}
+
+// acc[q] = sum_j lut[q, j, code_j] over j in order, from 0 (__fadd_rn).
+template <int M>
+__device__ __forceinline__ void adc8(const float* lut_s, const RowIn& r,
+                                     const uint8_t* crow, int m,
+                                     float (&acc)[kBlockQ]) {
+#pragma unroll
+  for (int q = 0; q < kBlockQ; ++q) acc[q] = 0.f;
+  const int mm = M ? M : m;
+#pragma unroll
+  for (int j = 0; j < mm; ++j) {
+    const int c = M ? (int)((r.cw[j >> 2] >> (8 * (j & 3))) & 0xffu)
+                    : (int)crow[j];
+    const float* e = lut_s + (j * kCodes + c) * kBlockQ;
+    const int sw = (c >> 2) & 1;      // lut_pos's half swap
+    const float4 a = *reinterpret_cast<const float4*>(e + 4 * sw);
+    const float4 b = *reinterpret_cast<const float4*>(e + 4 * (sw ^ 1));
+    acc[0] = __fadd_rn(acc[0], a.x);
+    acc[1] = __fadd_rn(acc[1], a.y);
+    acc[2] = __fadd_rn(acc[2], a.z);
+    acc[3] = __fadd_rn(acc[3], a.w);
+    acc[4] = __fadd_rn(acc[4], b.x);
+    acc[5] = __fadd_rn(acc[5], b.y);
+    acc[6] = __fadd_rn(acc[6], b.z);
+    acc[7] = __fadd_rn(acc[7], b.w);
+  }
+}
+
+// acc[q] as adc8 sums it, reading the tile's row-major LUTs (8 x m*256)
+// from global memory.
+template <int M>
+__device__ __forceinline__ void adc8_global(const float* __restrict__ lut_t,
+                                            const RowIn& r,
+                                            const uint8_t* __restrict__ crow,
+                                            int m, float (&acc)[kBlockQ]) {
+#pragma unroll
+  for (int q = 0; q < kBlockQ; ++q) acc[q] = 0.f;
+  const int mm = M ? M : m;
+  const long long w = (long long)m * kCodes;
+#pragma unroll
+  for (int j = 0; j < mm; ++j) {
+    const int c = M ? (int)((r.cw[j >> 2] >> (8 * (j & 3))) & 0xffu)
+                    : (int)__ldg(crow + j);
+#pragma unroll
+    for (int q = 0; q < kBlockQ; ++q)
+      acc[q] = __fadd_rn(acc[q], __ldg(lut_t + q * w + j * kCodes + c));
+  }
+}
+
+// ------------------------------------------------------------- witness
+
+// Also writes the tile's share of the LUTs at lut_pos into lut_g (the
+// chunks of a tile split its m * 256 entries), for the scan's copy, and
+// zeroes the tile's candidate counts.
+template <int M>
 __global__ void __launch_bounds__(kThreads)
-quantized_scan_pass1(const float* __restrict__ lut,
-                     const uint8_t* __restrict__ codes,
-                     const uint8_t* __restrict__ mask,
-                     const int* __restrict__ pks,
-                     const int* __restrict__ keep,
-                     const int* __restrict__ occ, float* __restrict__ part_d,
-                     int* __restrict__ part_p, int* __restrict__ part_r,
-                     int m, long long n_mask, int nkeep,
-                     int blocks_per_chunk, int n_chunks) {
-  extern __shared__ float smem[];
-  const int lut_w = m * kCodes;
-  float* lut_s = smem;                                  // [kBlockQ][m*256]
-  float* dist_s = lut_s + kBlockQ * lut_w;              // [kBlockQ][kSlice]
-  uint8_t* codes_s = reinterpret_cast<uint8_t*>(dist_s + kBlockQ * kSlice);
-  uint8_t* ok_s = codes_s + kSlice * m;                 // [kBlockQ][kSlice]
-
-  const int qt = blockIdx.x;
-  const int chunk = blockIdx.y;
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
+qscan_witness(const float* __restrict__ lut,
+              const uint8_t* __restrict__ codes,
+              const uint8_t* __restrict__ mask, const int* __restrict__ keep,
+              unsigned* __restrict__ wit, float* __restrict__ lut_g,
+              int* __restrict__ cand_n, int m, long long n_mask, int nkeep,
+              int per, int n_chunks) {
+  __shared__ unsigned key_s[kBlockQ * kSample];
+  const int qt = blockIdx.x, chunk = blockIdx.y;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const long long q0 = (long long)qt * kBlockQ;
+  if (chunk == 0 && tid < kBlockQ) cand_n[q0 + tid] = 0;
+  const int w = m * kCodes;
+  const float* lut_t = lut + q0 * w;
+  {
+    const int per_jc = (w + n_chunks - 1) / n_chunks;
+    const int jc0 = chunk * per_jc, njc = min(per_jc, w - jc0);
+    float* g = lut_g + (long long)qt * kBlockQ * w;
+    for (int t = tid; t < kBlockQ * njc; t += kThreads) {
+      const int q = t % kBlockQ, jc = jc0 + t / kBlockQ;
+      g[lut_pos(jc, q)] = __ldg(lut_t + (long long)q * w + jc);
+    }
+  }
 
-  const float* lut_t = lut + q0 * lut_w;
-  for (int i = tid; i < kBlockQ * lut_w; i += kThreads) lut_s[i] = lut_t[i];
+  const int b_lo = chunk * per;
+  const int nb = min(min(per, kSampleBlocks), nkeep - b_lo);
+  for (int s = tid; s < kSample; s += kThreads) {
+    const int bi = s / kSampleRows;
+    unsigned key[kBlockQ];
+#pragma unroll
+    for (int q = 0; q < kBlockQ; ++q) key[q] = kNone;
+    if (bi < nb) {
+      const long long prow =
+          (long long)keep[b_lo + bi] * kBlockN + s % kSampleRows;
+      RowIn r;
+      load_row<M>(r, codes, mask, prow, n_mask, q0);
+      float acc[kBlockQ];
+      adc8_global<M>(lut_t, r, codes + prow * m, m, acc);
+#pragma unroll
+      for (int q = 0; q < kBlockQ; ++q)
+        if (((r.ok >> q) & 1u) && !isnan(acc[q])) key[q] = ord_key(acc[q]);
+    }
+#pragma unroll
+    for (int q = 0; q < kBlockQ; ++q) key_s[q * kSample + s] = key[q];
+  }
   __syncthreads();
 
+  // warp w: the kWit smallest keys of query w's sample, smallest first
+  constexpr int kPer = kSample / 32;
+  unsigned v[kPer];
+#pragma unroll
+  for (int i = 0; i < kPer; ++i) v[i] = key_s[warp * kSample + i * 32 + lane];
+  unsigned* out = wit + (q0 + warp) * ((long long)n_chunks * kWit)
+                  + (long long)chunk * kWit;
+  for (int round = 0; round < kWit; ++round) {
+    unsigned mn = kNone;
+    int at = -1;
+#pragma unroll
+    for (int i = 0; i < kPer; ++i)
+      if (v[i] < mn) {
+        mn = v[i];
+        at = i;
+      }
+    const unsigned wmin = __reduce_min_sync(kFull, mn);
+    const unsigned who = __ballot_sync(kFull, at >= 0 && mn == wmin);
+    if (who && lane == __ffs(who) - 1) {   // take one instance of it
+#pragma unroll
+      for (int i = 0; i < kPer; ++i)
+        if (i == at) v[i] = kNone;
+    }
+    if (lane == 0) out[round] = wmin;
+  }
+}
+
+// ----------------------------------------------------------- threshold
+
+template <int N>
+__device__ __forceinline__ int count_le(const unsigned (&v)[N], unsigned k) {
+  int c = 0;
+#pragma unroll
+  for (int i = 0; i < N; ++i) c += v[i] <= k ? 1 : 0;
+  return (int)__reduce_add_sync(kFull, (unsigned)c);
+}
+
+// tau[q] >= the 128th smallest witness of query q (a witness key bound,
+// as a float), +inf when it has fewer than 128: one warp a query, its
+// witnesses in registers, a binary search between the least and the
+// largest witness for a K with kK witnesses <= K, stopped at kSlack keys.
+__global__ void __launch_bounds__(kTauThreads)
+qscan_threshold(const unsigned* __restrict__ wit, float* __restrict__ tau,
+                int nq, int nwit) {
+  constexpr int kPer = kMaxWit / 32;
+  const int lane = threadIdx.x & 31;
+  const int q = blockIdx.x * (kTauThreads / 32) + (threadIdx.x >> 5);
+  if (q >= nq) return;              // the whole warp leaves together
+  unsigned v[kPer];
+  unsigned lo = kNone, hi = 0;
+#pragma unroll
+  for (int i = 0; i < kPer; ++i) {
+    const int at = i * 32 + lane;
+    v[i] = at < nwit ? __ldg(wit + (long long)q * nwit + at) : kNone;
+    if (v[i] != kNone) {
+      lo = min(lo, v[i]);
+      hi = max(hi, v[i]);
+    }
+  }
+  lo = __reduce_min_sync(kFull, lo);
+  hi = __reduce_max_sync(kFull, hi);
+  if (count_le(v, kInfKey) < kK) {  // fewer than 128 witnesses
+    if (lane == 0) tau[q] = INFINITY;
+    return;
+  }
+  while (hi - lo > kSlack) {        // count(<= hi) >= kK throughout
+    const unsigned mid = lo + (hi - lo) / 2;
+    if (count_le(v, mid) >= kK)
+      hi = mid;
+    else
+      lo = mid + 1;
+  }
+  if (lane == 0) tau[q] = key_float(hi);
+}
+
+// ---------------------------------------------------------------- scan
+
+// The first slice index in [s, end) whose kept block the tile occupies.
+__device__ __forceinline__ int next_slice(const int* __restrict__ occ_t,
+                                          int s, int end) {
+  while (s < end && occ_t[s >> 1] == 0) s = (s | 1) + 1;
+  return s;
+}
+
+__device__ __forceinline__ int pk_of(const int* __restrict__ pks,
+                                     const int* __restrict__ keep, int kpos) {
+  return pks[(long long)keep[kpos / kBlockN] * kBlockN + kpos % kBlockN];
+}
+
+// A warp's 32 rows of codes from row0 (32 m bytes; 16-byte aligned, as
+// the codes are and 32 m is a multiple of 16) into its ring slot.
+__device__ __forceinline__ void ring_load(uint8_t* slot,
+                                          const uint8_t* __restrict__ codes,
+                                          long long row0, int m, int lane) {
+  const uint8_t* src = codes + row0 * m;
+  for (int c = lane; c < 2 * m; c += 32)
+    cp_async16(slot + 16 * c, src + 16 * c);
+}
+
+template <int M>
+__device__ __forceinline__ void ring_codes(RowIn& r, const uint8_t* crow) {
+  if (M == 4) {
+    r.cw[0] = *reinterpret_cast<const uint32_t*>(crow);
+  } else if (M == 8) {
+    const uint2 v = *reinterpret_cast<const uint2*>(crow);
+    r.cw[0] = v.x;
+    r.cw[1] = v.y;
+  } else if (M == 16) {
+    const uint4 v = *reinterpret_cast<const uint4*>(crow);
+    r.cw[0] = v.x;
+    r.cw[1] = v.y;
+    r.cw[2] = v.z;
+    r.cw[3] = v.w;
+  }
+}
+
+// Query q's candidates of the chunk again, by one warp, through a
+// register top-128 list (pks fetched for the rows that reach it): the
+// chunk's kK best among rows with adc <= t.  Its entries go to the
+// region at reg; returns their count.
+__device__ int rescan(const float* lut_s, const uint8_t* __restrict__ codes,
+                      const uint8_t* __restrict__ mask,
+                      const int* __restrict__ pks,
+                      const int* __restrict__ keep,
+                      const int* __restrict__ occ_t, int q, long long q0,
+                      float t, int begin, int end, int m, long long n_mask,
+                      float* __restrict__ reg_d, int* __restrict__ reg_r,
+                      long long reg, int lane) {
   WarpList L;
   list_init(L);
   float wd = INFINITY;
   int wp = kSentinel, wr = kSentinel;
+  const long long mrow = (q0 + q) * n_mask;
+  for (int s = next_slice(occ_t, begin, end); s < end;
+       s = next_slice(occ_t, s + 1, end)) {
+    const long long base =
+        (long long)keep[s >> 1] * kBlockN + (s & 1) * kSlice;
+    for (int h = 0; h < kSlice / 32; ++h) {
+      const int rin = h * 32 + lane;
+      const long long prow = base + rin;
+      const bool ok = prow < n_mask && mask[mrow + prow] != 0;
+      float acc = 0.f;
+      for (int j = 0; j < m; ++j)
+        acc = __fadd_rn(acc, lut_s[lut_pos(j * kCodes + codes[prow * m + j],
+                                           q)]);
+      const float lim = wr != kSentinel ? fminf(t, wd) : t;
+      const bool pass = ok && acc <= lim;
+      const int kpos = (s >> 1) * kBlockN + (s & 1) * kSlice + rin;
+      offer(L, pass, acc, pass ? pk_of(pks, keep, kpos) : kSentinel, kpos,
+            lane, wd, wp, wr);
+    }
+  }
+  int real = 0;
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {     // real entries come first
+    if (L.r[j] == kSentinel) continue;
+    reg_d[reg + 4 * lane + j] = L.d[j];
+    reg_r[reg + 4 * lane + j] = L.r[j];
+    ++real;
+  }
+  return (int)__reduce_add_sync(kFull, (unsigned)real);
+}
 
-  const int b_lo = chunk * blocks_per_chunk;
-  const int b_hi = min(nkeep, b_lo + blocks_per_chunk);
-  for (int kb = b_lo; kb < b_hi; ++kb) {
-    if (occ[(long long)qt * nkeep + kb] == 0) continue;  // uniform
-    const long long blk_row = (long long)keep[kb] * kBlockN;
-    for (int s0 = 0; s0 < kBlockN; s0 += kSlice) {
-      const long long row0 = blk_row + s0;
-      const uint8_t* src = codes + row0 * m;
-      for (int i = tid; i < kSlice * m; i += kThreads) codes_s[i] = src[i];
-      __syncthreads();
-      const long long prow = row0 + tid;
-      const bool in_range = prow < n_mask;
-      const uint8_t* my = codes_s + tid * m;
+// Each warp streams its 32 rows of every slice of the chunk with no block
+// barrier: the codes through its ring (the next slice's copy in flight),
+// the bitmap bytes one slice ahead in registers.  A candidate with
+// adc <= tau is written to its query's region of the chunk (kK slots, a
+// shared count); one past kK flags the query, and once the chunk is done
+// its warp redoes it by rescan.  Each region then goes to its query's
+// candidate list (cand_n counts it).
+template <int M>
+__global__ void __launch_bounds__(kThreads, 3)
+qscan_scan(const float* __restrict__ lut_g,
+           const uint8_t* __restrict__ codes,
+           const uint8_t* __restrict__ mask, const int* __restrict__ pks,
+           const int* __restrict__ keep, const int* __restrict__ occ,
+           const float* __restrict__ tau, float* __restrict__ reg_d,
+           int* __restrict__ reg_r, float* __restrict__ cand_d,
+           int* __restrict__ cand_r, int* __restrict__ cand_n, int m,
+           long long n_mask, int nkeep, int per, int n_chunks) {
+  extern __shared__ __align__(16) float smem[];
+  float* lut_s = smem;                                   // [m*256][8]
+  uint8_t* ring = reinterpret_cast<uint8_t*>(lut_s + kBlockQ * m * kCodes);
+  int* cnt_s = reinterpret_cast<int*>(ring + kWarps * 2 * 32 * m);
+  int* ovf_s = cnt_s + kBlockQ;
+
+  const int qt = blockIdx.x, chunk = blockIdx.y;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const long long q0 = (long long)qt * kBlockQ;
+  const long long cap = (long long)n_chunks * kK;
+  stage_lut(lut_s, lut_g + q0 * m * kCodes, m, tid);
+  if (tid < kBlockQ) {
+    cnt_s[tid] = 0;
+    ovf_s[tid] = 0;
+  }
+  float thr[kBlockQ];
 #pragma unroll
-      for (int qq = 0; qq < kBlockQ; ++qq) {
-        const bool ok = in_range && mask[(q0 + qq) * n_mask + prow] != 0;
-        float acc = 0.f;
-        if (ok) {
-          const float* lq = lut_s + qq * lut_w;
-          for (int j = 0; j < m; ++j)
-            acc = __fadd_rn(acc, lq[j * kCodes + my[j]]);   // in j order
+  for (int q = 0; q < kBlockQ; ++q) thr[q] = __ldg(tau + q0 + q);
+  __syncthreads();
+
+  const int* occ_t = occ + (long long)qt * nkeep;
+  const int begin = 2 * chunk * per;
+  const int end = 2 * min(nkeep, chunk * per + per);
+  uint8_t* slot0 = ring + warp * 2 * 32 * m;
+  int s = next_slice(occ_t, begin, end);
+  uint32_t ok = 0;
+  if (s < end) {
+    const long long r0 = (long long)keep[s >> 1] * kBlockN
+                         + (s & 1) * kSlice + warp * 32;
+    ring_load(slot0, codes, r0, m, lane);
+    ok = load_ok(mask, r0 + lane, n_mask, q0);
+  }
+  cp_async_commit();
+  int st = 0;
+  while (s < end) {                 // s is the same on every thread
+    const int sn = next_slice(occ_t, s + 1, end);
+    uint32_t ok_n = 0;
+    if (sn < end) {                 // the next slice, in flight
+      const long long r0 = (long long)keep[sn >> 1] * kBlockN
+                           + (sn & 1) * kSlice + warp * 32;
+      ring_load(slot0 + (st ^ 1) * 32 * m, codes, r0, m, lane);
+      ok_n = load_ok(mask, r0 + lane, n_mask, q0);
+    }
+    cp_async_commit();
+    cp_async_wait<1>();             // this slice's codes have landed
+    __syncwarp();
+    const uint8_t* crow = slot0 + st * 32 * m + lane * m;
+    RowIn r;
+    r.ok = ok;
+    ring_codes<M>(r, crow);
+    float acc[kBlockQ];
+    adc8<M>(lut_s, r, crow, m, acc);
+    const int kpos = (s >> 1) * kBlockN + (s & 1) * kSlice + warp * 32 + lane;
+#pragma unroll
+    for (int q = 0; q < kBlockQ; ++q) {
+      const bool pass = ((ok >> q) & 1u) && acc[q] <= thr[q];
+      const unsigned b = __ballot_sync(kFull, pass);
+      if (b) {                      // warp-aggregated append to region q
+        int at = 0;
+        if (lane == __ffs(b) - 1) at = atomicAdd(&cnt_s[q], __popc(b));
+        at = __shfl_sync(kFull, at, __ffs(b) - 1)
+             + __popc(b & ((1u << lane) - 1u));
+        if (pass) {
+          if (at < kK) {
+            const long long reg = (q0 + q) * cap + (long long)chunk * kK;
+            reg_d[reg + at] = acc[q];
+            reg_r[reg + at] = kpos;
+          } else {
+            ovf_s[q] = 1;
+          }
         }
-        dist_s[qq * kSlice + tid] = acc;
-        ok_s[qq * kSlice + tid] = ok ? 1 : 0;
       }
-      __syncthreads();
-#pragma unroll
-      for (int h = 0; h < kSlice / 32; ++h) {
-        const int rr = lane + 32 * h;
-        const bool v = ok_s[warp * kSlice + rr] != 0;
-        const int cp = v ? pks[row0 + rr] : kSentinel;
-        const int cr = kb * kBlockN + s0 + rr;
-        offer(L, v, dist_s[warp * kSlice + rr], cp, cr, lane, wd, wp, wr);
+    }
+    __syncwarp();                   // slot st is refilled next iteration
+    st ^= 1;
+    ok = ok_n;
+    s = sn;
+  }
+  cp_async_wait<0>();
+  __syncthreads();
+  // warp w settles query w: its region as filled or, past kK, refilled
+  // by a rescan; then appended to the query's candidate list
+  const long long qi = q0 + warp;
+  const long long reg = qi * cap + (long long)chunk * kK;
+  int n = min(cnt_s[warp], kK);
+  if (ovf_s[warp])
+    n = rescan(lut_s, codes, mask, pks, keep, occ_t, warp, q0, thr[warp],
+               begin, end, m, n_mask, reg_d, reg_r, reg, lane);
+  __syncwarp();
+  if (n == 0) return;
+  int base = 0;
+  if (lane == 0) base = atomicAdd(&cand_n[qi], n);
+  base = __shfl_sync(kFull, base, 0);
+  for (int i = lane; i < n; i += 32) {
+    cand_d[qi * cap + base + i] = reg_d[reg + i];
+    cand_r[qi * cap + base + i] = reg_r[reg + i];
+  }
+}
+
+// -------------------------------------------------------------- select
+
+// Sort sd/sp/sr[0, P) ascending by (adc, pk, row); P a power of two.
+__device__ void bitonic_sort(float* sd, int* sp, int* sr, int P, int tid) {
+  for (int k = 2; k <= P; k <<= 1) {
+    for (int j = k >> 1; j > 0; j >>= 1) {
+      for (int t = tid; t < P / 2; t += kSelectThreads) {
+        const int i = 2 * t - (t & (j - 1));      // t with a 0 bit at j
+        const int l = i + j;
+        const bool up = (i & k) == 0;
+        const float ad = sd[i], bd = sd[l];
+        const int ap = sp[i], bp = sp[l], ar = sr[i], br = sr[l];
+        const bool swap = up ? key_less(bd, bp, br, ad, ap, ar)
+                             : key_less(ad, ap, ar, bd, bp, br);
+        if (swap) {
+          sd[i] = bd;
+          sd[l] = ad;
+          sp[i] = bp;
+          sp[l] = ap;
+          sr[i] = br;
+          sr[l] = ar;
+        }
       }
       __syncthreads();
     }
   }
-  list_store(L, part_d, part_p, part_r,
-             ((q0 + warp) * n_chunks + chunk) * kK, lane);
+}
+
+// out_*[q] = the kK smallest of query q's candidates by (adc, pk, row),
+// then (+inf, SENTINEL, SENTINEL).  The candidates are the scan's list of
+// (adc, kept row) pairs; pks are fetched here.  Up to 8,192 candidates:
+// the block finds a K at or just above the kK-th smallest adc (a binary
+// search over keys, the candidates in registers, stopped at kSlack keys)
+// and sorts only those with adc <= K (every row of the answer is one of
+// them).  Above that, or when more than 2,048 lie at or under K: sort
+// all, 2,048 at a time, keeping the best 128.
+__global__ void __launch_bounds__(kSelectThreads)
+qscan_select(const float* __restrict__ cand_d, const int* __restrict__ cand_r,
+             const int* __restrict__ cand_n, const int* __restrict__ pks,
+             const int* __restrict__ keep, int n_chunks,
+             float* __restrict__ out_d, int* __restrict__ out_p,
+             int* __restrict__ out_r) {
+  constexpr int kSWarps = kSelectThreads / 32;
+  __shared__ float sd[kSelect];
+  __shared__ int sp[kSelect];
+  __shared__ int sr[kSelect];
+  __shared__ unsigned part[2][kSWarps];
+  __shared__ int picked;
+  const int q = blockIdx.x, tid = threadIdx.x;
+  const int lane = tid & 31, warp = tid >> 5;
+  const long long base = (long long)q * n_chunks * kK;
+  const int n = min(cand_n[q], n_chunks * kK);
+
+  bool done = false;
+  if (n <= kSelectThreads * kRegKeys) {
+    unsigned key[kRegKeys];
+#pragma unroll
+    for (int i = 0; i < kRegKeys; ++i) {
+      const int f = i * kSelectThreads + tid;
+      key[i] = f < n ? ord_key(cand_d[base + f]) : kNone;
+    }
+    unsigned K = kNone - 1u;          // n <= kK: every candidate
+    if (n > kK) {                     // K >= the kK-th smallest key
+      unsigned lo = kNone, hi = 0;
+#pragma unroll
+      for (int i = 0; i < kRegKeys; ++i)
+        if (key[i] != kNone) {
+          lo = min(lo, key[i]);
+          hi = max(hi, key[i]);
+        }
+      lo = __reduce_min_sync(kFull, lo);
+      hi = __reduce_max_sync(kFull, hi);
+      if (lane == 0) {
+        part[0][warp] = lo;
+        part[1][warp] = hi;
+      }
+      __syncthreads();
+#pragma unroll
+      for (int w = 0; w < kSWarps; ++w) {
+        lo = min(lo, part[0][w]);
+        hi = max(hi, part[1][w]);
+      }
+      __syncthreads();
+      for (int it = 0; hi - lo > kSlack; ++it) {
+        const unsigned mid = lo + (hi - lo) / 2;
+        int cnt = 0;
+#pragma unroll
+        for (int i = 0; i < kRegKeys; ++i) cnt += key[i] <= mid ? 1 : 0;
+        cnt = (int)__reduce_add_sync(kFull, (unsigned)cnt);
+        if (lane == 0) part[it & 1][warp] = (unsigned)cnt;
+        __syncthreads();
+        int total = 0;
+#pragma unroll
+        for (int w = 0; w < kSWarps; ++w) total += (int)part[it & 1][w];
+        if (total >= kK)
+          hi = mid;
+        else
+          lo = mid + 1;
+      }
+      K = hi;
+    }
+    if (tid == 0) picked = 0;
+    __syncthreads();
+#pragma unroll
+    for (int i = 0; i < kRegKeys; ++i) {
+      const bool sel = key[i] <= K;
+      const unsigned b = __ballot_sync(kFull, sel);
+      if (!b) continue;
+      int at = 0;
+      if (lane == __ffs(b) - 1) at = atomicAdd(&picked, __popc(b));
+      at = __shfl_sync(kFull, at, __ffs(b) - 1)
+           + __popc(b & ((1u << lane) - 1u));
+      if (sel && at < kSelect) {
+        const long long f = base + i * kSelectThreads + tid;
+        const int row = cand_r[f];
+        sd[at] = cand_d[f];
+        sr[at] = row;
+        sp[at] = pk_of(pks, keep, row);
+      }
+    }
+    __syncthreads();
+    const int c_sel = picked;
+    if (c_sel <= kSelect) {
+      int P = kK;
+      while (P < c_sel) P <<= 1;
+      for (int i = c_sel + tid; i < P; i += kSelectThreads) {
+        sd[i] = INFINITY;
+        sp[i] = kSentinel;
+        sr[i] = kSentinel;
+      }
+      __syncthreads();
+      bitonic_sort(sd, sp, sr, P, tid);
+      done = true;
+    }
+  }
+  if (!done) {
+    int next = 0;
+    int lo = 0;                     // slots below lo hold the best so far
+    do {
+      for (int i = lo + tid; i < kSelect; i += kSelectThreads) {
+        const int f = next + i - lo;
+        if (f < n) {
+          const long long src = base + f;
+          const int row = cand_r[src];
+          sd[i] = cand_d[src];
+          sr[i] = row;
+          sp[i] = pk_of(pks, keep, row);
+        } else {
+          sd[i] = INFINITY;
+          sp[i] = kSentinel;
+          sr[i] = kSentinel;
+        }
+      }
+      next += kSelect - lo;
+      lo = kK;
+      __syncthreads();
+      bitonic_sort(sd, sp, sr, kSelect, tid);
+    } while (next < n);
+  }
+  if (tid < kK) {
+    out_d[(long long)q * kK + tid] = sd[tid];
+    out_p[(long long)q * kK + tid] = sp[tid];
+    out_r[(long long)q * kK + tid] = sr[tid];
+  }
+}
+
+template <int M>
+cudaError_t launch_all(const float* lut, const uint8_t* codes,
+                       const uint8_t* mask, const int* pks, const int* keep,
+                       const int* occ, unsigned* wit, float* tau,
+                       float* lut_g, float* reg_d, int* reg_r, float* cand_d,
+                       int* cand_r, int* cand_n,
+                       float* out_d, int* out_p, int* out_r, int nq, int m,
+                       long long n_mask, int nkeep, int per, int n_chunks,
+                       size_t smem, cudaStream_t s) {
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(qscan_scan<M>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)smem);
+    if (e != cudaSuccess) return e;
+  }
+  const dim3 grid(nq / kBlockQ, n_chunks);
+  qscan_witness<M><<<grid, kThreads, 0, s>>>(
+      lut, codes, mask, keep, wit, lut_g, cand_n, m, n_mask, nkeep, per,
+      n_chunks);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  qscan_threshold<<<(nq + kTauThreads / 32 - 1) / (kTauThreads / 32),
+                    kTauThreads, 0, s>>>(wit, tau, nq, n_chunks * kWit);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  qscan_scan<M><<<grid, kThreads, smem, s>>>(
+      lut_g, codes, mask, pks, keep, occ, tau, reg_d, reg_r, cand_d, cand_r,
+      cand_n, m, n_mask, nkeep, per, n_chunks);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  qscan_select<<<nq, kSelectThreads, 0, s>>>(cand_d, cand_r, cand_n, pks,
+                                             keep, n_chunks, out_d, out_p,
+                                             out_r);
+  return cudaGetLastError();
 }
 
 }  // namespace
 
-// lut (nq, m*256) fp32 with nq a multiple of 8; codes (rows, m) uint8 with
-// rows a multiple of 512 covering every kept block; mask (nq, n_mask)
-// uint8; pks (rows,) int32; keep (nkeep,) int32 block ids; occ (nq / 8,
-// nkeep) int32; part_* (nq, n_chunks, 128) scratch; out_* (nq, 128);
-// smem_wrapper the wrapper's shared-memory sum for this m.
+// lut (nq, m*256) fp32, 16-byte aligned, with nq a multiple of 8; codes
+// (rows, m) uint8 with rows a multiple of 512 covering every kept block;
+// mask (nq, n_mask) uint8; pks (rows,) int32; keep (nkeep,) int32 block
+// ids; occ (nq / 8, nkeep) int32; scratch: wit (nq, n_chunks * 4) uint32,
+// tau (nq,) fp32, lut_g (nq, m*256) fp32 16-byte aligned, reg_d/reg_r and
+// cand_d/cand_r (nq, n_chunks * 128), cand_n (nq,) int32; codes 16-byte
+// aligned; out_* (nq, 128); smem_wrapper the wrapper's
+// shared-memory sum for this m.  Chunk c holds kept blocks [c * per,
+// (c + 1) * per); n_chunks <= 256.
 extern "C" int quantized_scan_topk_launch(
     const float* lut, const uint8_t* codes, const uint8_t* mask,
-    const int* pks, const int* keep, const int* occ, float* part_d,
-    int* part_p, int* part_r, float* out_d, int* out_p, int* out_r, int nq,
-    int m, long long n_mask, int nkeep, int blocks_per_chunk, int n_chunks,
+    const int* pks, const int* keep, const int* occ, void* wit, float* tau,
+    float* lut_g, float* reg_d, int* reg_r, float* cand_d, int* cand_r,
+    int* cand_n, float* out_d, int* out_p, int* out_r, int nq, int m,
+    long long n_mask, int nkeep, int per, int n_chunks,
     long long smem_wrapper, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const size_t smem = smem_bytes(m);
   if (smem_wrapper != (long long)smem) return (int)cudaErrorInvalidValue;
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        quantized_scan_pass1, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (e != cudaSuccess) return (int)e;
-  }
-  const dim3 grid1(nq / kBlockQ, n_chunks);
-  quantized_scan_pass1<<<grid1, kThreads, smem, s>>>(
-      lut, codes, mask, pks, keep, occ, part_d, part_p, part_r, m, n_mask,
-      nkeep, blocks_per_chunk, n_chunks);
-  cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return (int)e;
-  return (int)launch_merge_chunks(part_d, part_p, part_r, out_d, out_p,
-                                  out_r, nq, n_chunks, s);
+  if (n_chunks > kMaxChunks || (long long)per * n_chunks < nkeep)
+    return (int)cudaErrorInvalidValue;
+  if (reinterpret_cast<uintptr_t>(lut_g) % 16 != 0
+      || reinterpret_cast<uintptr_t>(codes) % 16 != 0)
+    return (int)cudaErrorMisalignedAddress;
+  unsigned* w = static_cast<unsigned*>(wit);
+#define QSCAN_LAUNCH(MM)                                                  \
+  return (int)launch_all<MM>(lut, codes, mask, pks, keep, occ, w, tau,    \
+                             lut_g, reg_d, reg_r, cand_d, cand_r, cand_n, \
+                             out_d, out_p, out_r, nq, m, n_mask, nkeep,   \
+                             per, n_chunks, smem, s)
+  if (m == 8) QSCAN_LAUNCH(8);
+  if (m == 4) QSCAN_LAUNCH(4);
+  if (m == 16) QSCAN_LAUNCH(16);
+  QSCAN_LAUNCH(0);
+#undef QSCAN_LAUNCH
 }

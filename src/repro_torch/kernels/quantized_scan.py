@@ -10,6 +10,14 @@ sum_j lut[q, j, code[i, j]] (fp32, over j in order) over mask-admitted
 rows, ordered by (adc, pk, row), each row reported as its kept-block
 position, empty slots (+inf, SENTINEL, SENTINEL).
 
+One wrapper call is four launches on the card: witnesses (a sample's 2
+smallest ADC values per chunk and query), a per-query threshold (at or
+above the 128th smallest witness, so no row of the answer exceeds it),
+the scan (only rows at or under the threshold are kept, up to KMAX a
+chunk and query, else that chunk is rescanned through a top-KMAX list)
+and a per-query select over what was kept.  The chunking below is the
+scan's own.
+
 A query tile's 8 LUTs sit in the kernel's shared memory, so ``m`` is
 bounded by the card's per-block limit: a larger ``m`` raises
 ``ValueError`` (there is no other route for it on the card).
@@ -22,20 +30,56 @@ import torch
 
 from repro_torch.kernels import build, ref
 from repro_torch.kernels.fused_scan import (BLOCK_N, BLOCK_Q, KMAX, compact,
-                                            empty_topk, launch_buffers)
+                                            empty_topk)
 
 N_CODES = 256               # codewords per subquantizer (uint8 codes)
+WITNESSES = 2               # sampled ADC values a (chunk, query) publishes
+MIN_CHUNKS = 64             # chunks a query tile: 64 x 2 >= KMAX witnesses
+MAX_CHUNKS = 512            # most chunks (csrc kMaxChunks)
+_BLOCKS_PER_SM = 3          # scan blocks an SM holds at m = 8
+_WARPS = 8                  # warps of a scan block (csrc kWarps)
 
 launches = build.LaunchCount()
 
 
 def smem_bytes(m: int) -> int:
-    """Shared memory of one pass-1 block at ``m`` subquantizers: the
-    tile's LUTs, 256 staged rows of codes, and their ADC values and admit
-    flags for 8 queries.  The launcher is handed this sum and refuses it
-    unless it is the size of ``csrc/quantized_scan.cu``'s carve-out."""
-    return BLOCK_Q * m * N_CODES * 4 + BLOCK_Q * 256 * 4 + 256 * m \
-        + BLOCK_Q * 256
+    """Shared memory of one scan block at ``m`` subquantizers: the tile's
+    LUTs, each warp's two-slot ring of its 32 rows' codes, and a count and
+    an overflow flag per query.  The launcher is handed this sum and
+    refuses it unless it is the size of ``csrc/quantized_scan.cu``'s
+    carve-out."""
+    return BLOCK_Q * m * N_CODES * 4 + _WARPS * 2 * 32 * m + 2 * BLOCK_Q * 4
+
+
+def chunking(n_qtiles: int, nkeep: int, sms: int) -> Tuple[int, int]:
+    """(kept blocks per chunk, chunks) of the scan grid: about
+    ``_BLOCKS_PER_SM`` blocks an SM over all query tiles, at least
+    ``MIN_CHUNKS`` chunks a tile (so that its witnesses can number KMAX)
+    and at most ``MAX_CHUNKS``, never more chunks than kept blocks."""
+    want = max(MIN_CHUNKS, -(-_BLOCKS_PER_SM * sms // n_qtiles))
+    want = max(1, min(want, MAX_CHUNKS, nkeep))
+    per = -(-nkeep // want)
+    if -(-nkeep // per) < min(MIN_CHUNKS, nkeep):   # rounding lost chunks
+        per = max(1, nkeep // MIN_CHUNKS)
+    return per, -(-nkeep // per)
+
+
+def launch_scratch(nq: int, chunks: int, m: int, device):
+    """The launch's scratch, in the launcher's order: witnesses (nq,
+    chunks * WITNESSES) uint32 keys, thresholds (nq,) fp32, the LUTs in
+    the scan's shared-memory layout (nq, m * 256) fp32, each chunk's
+    candidate region (ADC values and kept rows, (nq, chunks * KMAX)), the
+    per-query candidate lists (the same shape) and their lengths (nq,)."""
+    f32, i32 = torch.float32, torch.int32
+    cap = chunks * KMAX
+    return (torch.empty((nq, chunks * WITNESSES), dtype=i32, device=device),
+            torch.empty((nq,), dtype=f32, device=device),
+            torch.empty((nq, m * N_CODES), dtype=f32, device=device),
+            torch.empty((nq, cap), dtype=f32, device=device),
+            torch.empty((nq, cap), dtype=i32, device=device),
+            torch.empty((nq, cap), dtype=f32, device=device),
+            torch.empty((nq, cap), dtype=i32, device=device),
+            torch.empty((nq,), dtype=i32, device=device))
 
 
 def plain(lut, codes, mask, pks, keep):
@@ -91,12 +135,19 @@ def quantized_scan_topk(lut: torch.Tensor, codes: torch.Tensor,
     if dev.type == "cpu":
         return plain(lut, codes, mask, pks, keep)
     lut, codes, mask = lut.contiguous(), codes.contiguous(), mask.contiguous()
+    if codes.data_ptr() % 16:       # the scan copies codes 16 bytes at a time
+        codes = codes.clone()
     pks, keep, occ = pks.contiguous(), keep.contiguous(), occ.contiguous()
-    per, chunks, out, part = launch_buffers(nq, nkeep, dev)
+    per, chunks = chunking(nq // BLOCK_Q, nkeep, build.sm_count(dev))
+    f32, i32 = torch.float32, torch.int32
+    scratch = launch_scratch(nq, chunks, m, dev)
+    out = tuple(torch.empty((nq, KMAX), dtype=t, device=dev)
+                for t in (f32, i32, i32))
     launch = build.launcher("quantized_scan")
     err = launch(lut.data_ptr(), codes.data_ptr(), mask.data_ptr(),
                  pks.data_ptr(), keep.data_ptr(), occ.data_ptr(),
-                 *(t.data_ptr() for t in part + out), nq, m, mask.shape[1],
+                 *(t.data_ptr() for t in scratch),
+                 *(t.data_ptr() for t in out), nq, m, mask.shape[1],
                  nkeep, per, chunks, smem,
                  torch.cuda.current_stream(dev).cuda_stream)
     build.check(err, "quantized_scan_topk")

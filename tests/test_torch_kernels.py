@@ -74,6 +74,70 @@ def test_ivf_scan_plain_matches_pallas(nq, n, d, pad_rows):
         assert np.isposinf(got[:, n - pad_rows:]).all()
 
 
+def test_ivf_launch_path_rule():
+    """The card takes the skinny path for at most 8 queries whose
+    zero-padded rows (features rounded up to 16) fit 48 KB; else 128-row
+    wide tiles, unless 64-row ones leave the busiest of 132 SMs less work
+    (a 64-row tile counted 15 % dearer).  Every path computes the same
+    operations."""
+    lp = p_ivf.launch_path
+    assert p_ivf.skinny_smem(8, 100) == 8 * 112 * 4
+    assert lp(1, 512, 128) == "skinny" and lp(8, 512, 128) == "skinny"
+    assert lp(8, 512, 1536) == "skinny"                  # 48 KB exactly
+    assert lp(8, 512, 1537) == "wide-64"                 # 8 rows: 64-row tiles
+    assert lp(1, 512, 12288) == "skinny" and lp(1, 512, 12289) != "skinny"
+    # 2,048 x 512: 128 tiles of 128 rows, one an SM
+    assert lp(2048, 512, 128) == "wide" and lp(2048, 512, 16) == "wide"
+    # 2,056 rows make 17 tiles of 128 rows (136 tiles, a second wave on 4
+    # SMs) but 33 of 64 (264 tiles, 2 an SM)
+    assert lp(2056, 512, 128) == "wide-64"
+    assert lp(1024, 512, 128) == "wide-64"               # 64 vs 128 tiles
+    assert lp(9, 512, 128) == "wide-64"
+    assert lp(16384, 512, 128) == "wide" and lp(16384, 2048, 128) == "wide"
+    assert lp(2056, 512, 128, sms=136) == "wide"         # one wave again
+    assert set(p_ivf.PATHS) == {"skinny", "wide", "wide-64"}
+
+
+def test_ivf_wrapper_constants_are_the_sources():
+    """The wrapper's shape rule reads the kernel's tiling from constants of
+    its own; they must be csrc/ivf_scan.cu's, or the rule and the shared
+    memory it checks would describe another kernel."""
+    import re
+    from pathlib import Path
+    src = (Path(p_ivf.__file__).parent / "csrc" / "ivf_scan.cu").read_text()
+
+    def const(name):
+        return int(re.search(rf"constexpr int {name} = (\d+)", src).group(1))
+    assert p_ivf._K_SLICE == const("kBK")
+    assert p_ivf._TILE_N == 16 * const("kTN")
+    assert p_ivf.SKINNY_MAX_Q == const("kSkinnyQ")
+
+
+@pytest.mark.parametrize("nq,n,d", [(1, 600, 2), (8, 512, 16),
+                                    (8, 1537, 128), (9, 512, 128),
+                                    (64, 700, 16), (2048, 512, 16)])
+def test_ivf_scan_plain_matches_pallas_on_every_launch_path(nq, n, d):
+    """At shapes of every launch path of the card, with 1e30 pad rows,
+    the port's ivf_scan (plain version on the CPU) against the oracle and,
+    where its tiling takes the shape, the Pallas kernel (interpret):
+    within 1e-5 (||q||^2 + ||x||^2), pad rows +inf."""
+    rng = np.random.default_rng(2)
+    q = rng.normal(size=(nq, d)).astype(np.float32)
+    x = rng.normal(size=(n, d)).astype(np.float32)
+    x[n - n // 4:] = 1e30
+    got = p_ivf.ivf_scan(torch.from_numpy(q), torch.from_numpy(x)).numpy()
+    wants = [np.asarray(r_ref.ivf_scan_ref(jnp.asarray(q), jnp.asarray(x)))]
+    if nq % 8 == 0 and n % 512 == 0:
+        wants.append(np.asarray(r_ivf.ivf_scan(jnp.asarray(q), jnp.asarray(x),
+                                               interpret=True)))
+    tol = d2_tol(q, x)
+    for want in wants:
+        fin = np.isfinite(want)
+        np.testing.assert_array_equal(np.isfinite(got), fin)
+        assert (np.abs(got[fin] - want[fin]) <= tol[fin]).all()
+    assert np.isposinf(got[:, n - n // 4:]).all()
+
+
 @pytest.mark.parametrize("n,c", [(1024, 1), (2048, 2), (3072, 3)])
 def test_bitmap_plain_matches_pallas(n, c):
     rng = np.random.default_rng(2)

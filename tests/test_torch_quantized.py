@@ -169,6 +169,74 @@ def test_pq_adc_kernel_matches_ref(n, m):
         np.testing.assert_array_equal(_bits(got), _bits(want))
 
 
+@pytest.mark.parametrize("n_qtiles,nkeep,sms", [
+    (1, 4096, 132), (1, 2, 132), (1, 70, 132), (8, 4096, 132),
+    (256, 4096, 132), (256, 130, 132), (1, 100_000, 132), (3, 4096, 16)])
+def test_quantized_chunking_covers_every_kept_block(n_qtiles, nkeep, sms):
+    """The scan's grid: every kept block in exactly one chunk, no chunk
+    empty, at most MAX_CHUNKS (the launcher's limit), about 3 blocks an SM
+    over the query tiles and, with enough kept blocks, the MIN_CHUNKS a
+    tile needs for KMAX witnesses."""
+    per, chunks = p_qs.chunking(n_qtiles, nkeep, sms)
+    assert per * chunks >= nkeep > per * (chunks - 1)
+    assert 1 <= chunks <= p_qs.MAX_CHUNKS
+    if nkeep >= p_qs.MIN_CHUNKS:
+        assert chunks * p_qs.WITNESSES >= r_fs.KMAX
+        assert chunks >= min(p_qs.MAX_CHUNKS, 3 * sms // n_qtiles,
+                             nkeep) // 2
+    nq = 8 * n_qtiles
+    scratch = p_qs.launch_scratch(nq, chunks, 8, HOST)
+    assert [tuple(t.shape) for t in scratch] == [
+        (nq, chunks * p_qs.WITNESSES), (nq,), (nq, 8 * 256),
+        (nq, chunks * r_fs.KMAX), (nq, chunks * r_fs.KMAX),
+        (nq, chunks * r_fs.KMAX), (nq, chunks * r_fs.KMAX), (nq,)]
+
+
+def test_quantized_wrapper_constants_are_the_sources():
+    """The wrapper sizes the launch's scratch from constants of its own;
+    they must be csrc/quantized_scan.cu's, or the witness buffer or the
+    chunk count would not be what the kernel writes and reads."""
+    import re
+    from pathlib import Path
+    src = (Path(p_qs.__file__).parent / "csrc" / "quantized_scan.cu"
+           ).read_text()
+
+    def const(name):
+        return int(re.search(rf"constexpr int {name} = (\d+)", src).group(1))
+    assert p_qs.WITNESSES == const("kWit")
+    assert p_qs.MAX_CHUNKS == const("kMaxChunks")
+    assert p_qs.MIN_CHUNKS * p_qs.WITNESSES >= r_fs.KMAX
+    assert p_qs._WARPS == const("kThreads") // 32
+
+
+@pytest.mark.parametrize("kind", ["dup", "partial"])
+def test_kernel_matches_ref_across_many_kept_blocks(kind):
+    """At 128 kept blocks (the card splits them into 64 chunks and filters
+    by a witness threshold; duplicate codes put many rows at it) the
+    wrapper's plain version against the oracle: bitwise."""
+    rng = np.random.default_rng(3)
+    nq, n, m = 8, 65_536, 8
+    q = rng.normal(size=(nq, 4 * m)).astype(np.float32)
+    codes, books = _make_pq(n, 4 * m, m, seed=4)
+    if kind == "dup":
+        codes = codes[rng.integers(0, 16, n)]
+    mask = rng.random((nq, n)) < (1.0 if kind == "dup" else 0.3)
+    pks = rng.permutation(n).astype(np.int64) * 3 + 1
+    lut = p_ops.adc_lut(q, books)
+    args, keep = p_ops.quantized_kernel_args(lut, codes, mask, pks, HOST)
+    assert len(keep) == n // BN
+    gd, gp, gi = (t.numpy() for t in p_qs.quantized_scan_topk(*args))
+    ck, mk, pk = (t.numpy() for t in p_fs.compact(*args[1:5]))
+    od, op, oi = (np.asarray(a) for a in r_ref.quantized_topk_ref(
+        jnp.asarray(lut), jnp.asarray(ck.astype(np.int32)), jnp.asarray(mk),
+        jnp.asarray(pk), k=r_fs.KMAX))
+    np.testing.assert_array_equal(_bits(gd), _bits(od))
+    np.testing.assert_array_equal(gp, op)
+    np.testing.assert_array_equal(gi, oi)
+    if kind == "dup":
+        assert (gd[:, 1:] == gd[:, :-1]).sum() > 100
+
+
 def test_wrappers_refuse_an_m_the_card_cannot_hold():
     """The tile's LUTs live in shared memory: an m past the card's limit
     raises ValueError on every device, never a quiet fallback."""
@@ -531,6 +599,42 @@ def test_g6_recall_at_128d_matches_the_reference():
         hits += len({r.pk for r in got[0]} & want)
     print(f"g6 recall@10 at 128-d, pq_m 8, {cfg.n_rows} rows, 16 queries: "
           f"{hits / 160:.4f} (port and reference alike)")
+
+
+def test_g6_recall_at_65536_rows_matches_the_reference():
+    """At 65,536 rows, eight times the store above, recall@10 of g6 falls
+    the same way in both packages, and each quantized answer holds the
+    reference's pks in the reference's order.  Its scores agree within
+    1e-5 of the score, not bitwise: the exact re-rank is now above
+    HOST_FLOP_CUTOFF, where each package expands the distance through its
+    own fp32 matrix product.  Run with -s to see the recall."""
+    cfg = tracy.TracyConfig(n_rows=65536, dim=128, seed=7, flush_rows=2048,
+                            fanout=4, pq_m=8)
+    ref, data = tracy.build_store(cfg)
+    port = PStore(port_schema(cfg.dim), _port_config(cfg), device="cpu")
+    replay = tracy.TracyData(cfg)
+    for _ in range(cfg.n_rows // 2048):
+        port.put(*replay.batch(2048))
+    port.flush()
+    r_ex, p_ex = RExecutor(ref), PExecutor(port)
+    quant = _draw(data, 5, "g6", 0.9, n=16)
+    exact = _draw(data, 5, "g6", None, n=16)
+    hits = {"reference": 0, "port": 0}
+    for qa, qb in zip(quant, exact):
+        _fresh()
+        r_got = r_ex.execute(qa)
+        p_got = p_ex.execute(to_port(qa))
+        assert "dispatch=quantized(pq m=8, refine=4)" in p_got[1].plan
+        assert [r.pk for r in p_got[0]] == [r.pk for r in r_got[0]]
+        for a, b in zip(p_got[0], r_got[0]):
+            assert abs(a.score - b.score) <= 1e-5 * abs(b.score)
+        for name, ex, got, qq in (("reference", r_ex, r_got, qb),
+                                  ("port", p_ex, p_got, to_port(qb))):
+            want = {r.pk for r in ex.execute(qq)[0]}
+            hits[name] += len({r.pk for r in got[0]} & want)
+    assert hits["port"] == hits["reference"]
+    print(f"g6 recall@10 at 128-d, pq_m 8, {cfg.n_rows} rows, 16 queries: "
+          f"{hits['port'] / 160:.4f} (port and reference alike)")
 
 
 # ---------------------------------------------------------------------------

@@ -274,3 +274,51 @@ def test_device_busy_is_the_union_of_device_intervals():
                                                        DeviceType.CPU)])
     assert cs.device_busy_us(prof) == 17
     assert cs.device_busy_us(types.SimpleNamespace(events=lambda: [])) == 0
+
+
+def test_span_ms_sums_the_named_kernels_per_call():
+    """A kernel's device time per call from its trace spans: one name
+    counts its own spans, a tuple sums its names', None every kernel but
+    copies and fills; a named kernel that did not launch once a call
+    fails the run."""
+    spans = [("void qscan_scan<8>(float const*)", 40.0),
+             ("void qscan_scan<8>(float const*)", 60.0),
+             ("qscan_select(float const*)", 10.0),
+             ("qscan_select(float const*)", 30.0),
+             ("Memcpy HtoD (Pageable -> Device)", 500.0)]
+    assert cs.span_ms(spans, "qscan_scan", 2) == pytest.approx(0.05)
+    assert cs.span_ms(spans, ("qscan_scan", "qscan_select"), 2) == \
+        pytest.approx(0.07)
+    assert cs.span_ms(spans, None, 2) == pytest.approx(0.07)
+    with pytest.raises(cs.SmokeFailure, match="launches of qscan_witness"):
+        cs.span_ms(spans, ("qscan_scan", "qscan_witness"), 2)
+    with pytest.raises(cs.SmokeFailure, match="not 3"):
+        cs.span_ms(spans, "qscan_select", 3)
+
+
+def test_quantized_stage_names_are_the_kernels_of_the_source():
+    """Each name the smoke times the quantized scan by is a kernel of
+    csrc/quantized_scan.cu, so the device-time check sees all of a call's
+    launches."""
+    import re
+    src = (ROOT / "src/repro_torch/kernels/csrc/quantized_scan.cu"
+           ).read_text()
+    kernels = set(re.findall(
+        r"__global__ void(?: __launch_bounds__\([^)]*\))?\s+(\w+)\(", src))
+    assert set(cs.QSCAN_KERNELS) == kernels
+
+
+def test_ivf_edge_shapes_reach_every_launch_path():
+    """The smoke's ivf_scan edge shapes take every launch path, with the
+    query counts on both sides of the skinny path's 8, ragged row counts,
+    the feature widths of the paths and 1e30 pad rows."""
+    from repro_torch.kernels import ivf_scan
+    assert cs.ivf_paths(cs.IVF_EDGE) == {"skinny", "wide", "wide-64"}
+    assert cs.ivf_paths([(8, 512, 128)]) == {"skinny"}
+    assert cs.ivf_paths([(2048, 512, 128)]) == {"wide"}
+    assert cs.ivf_paths([(9, 512, 128)]) == {"wide-64"}
+    nqs = {s[0] for s in cs.IVF_EDGE}
+    assert {1, 8, 9, 64, 2048} <= nqs
+    assert {2, 16, 128} <= {s[2] for s in cs.IVF_EDGE}
+    assert any(s[1] % ivf_scan.BLOCK_N for s in cs.IVF_EDGE)
+    assert any(s[3] for s in cs.IVF_EDGE)

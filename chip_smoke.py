@@ -197,22 +197,29 @@ def kernel_ms(fn, kernel, reps: int = 20, warm: int = 3) -> float:
     launches) over ``reps`` calls, from a ``torch.profiler`` trace: the
     kernels' own time, without the wrapper's allocations and the host's
     launch cost that a few-microsecond kernel's CUDA-event time is mostly
-    made of.  Fails if a named kernel did not launch once a call."""
+    made of.  Fails if no trace of three holds one launch of each named
+    kernel a call (a trace can miss a few kernel records)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     for _ in range(warm):
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    spans = [(e.name, e.time_range.end - e.time_range.start)
-             for e in prof.events()
-             if getattr(e, "device_type", None) == DeviceType.CUDA]
-    return span_ms(spans, kernel, reps)
+    for attempt in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        spans = [(e.name, e.time_range.end - e.time_range.start)
+                 for e in prof.events()
+                 if getattr(e, "device_type", None) == DeviceType.CUDA]
+        try:
+            return span_ms(spans, kernel, reps)
+        except SmokeFailure as e:
+            if attempt == 2:
+                raise
+            log(f"kernel_ms: {e}; tracing again")
 
 
 def span_ms(spans, kernel, reps: int) -> float:
@@ -422,6 +429,24 @@ def ivf_paths(shapes) -> set:
     return {ivf_scan.launch_path(s[0], s[1], s[2]) for s in shapes}
 
 
+def hold_plain(kind, key, x, y, out) -> float:
+    """Hold one path call's output of ivf_scan, bitmap_filter or pq_adc
+    against the plain version on the same inputs: ivf_scan within
+    ``ivf_compare``'s bound (returns max |kernel - plain|), the other two
+    bitwise (returns 0.0)."""
+    from repro_torch.kernels import ref
+    if kind == "ivf":
+        return ivf_compare(x, y, out, ref.ivf_scan_ref(x, y))
+    if kind == "pq":
+        check(same_bits(out, ref.pq_adc_ref(x, y)), f"pq_adc main-path "
+              f"input {key}: differs from the plain version")
+        return 0.0
+    bad = int((out.bool() != ref.bitmap_filter_ref(x, y)).sum())
+    check(bad == 0, f"bitmap_filter main-path input {key}: {bad} rows "
+          f"differ")
+    return 0.0
+
+
 def edge_checks(dev, errs) -> None:
     import torch
     from repro_torch.kernels import bitmap_filter, fused_scan, ivf_scan, ref
@@ -492,16 +517,38 @@ def adc_case(rng, nq, n, m, kind):
         mask[:] = True
         mask[:, :512] = False
         mask[:, n // 2:n // 2 + 512] = False
+    elif kind == "nan":
+        # NaN ADC values: every row of query 0 (all admitted), and the rows
+        # whose first code is below 64 for the others
+        q[0] = np.nan
+        books[0, :64] = np.nan
+        mask[0] = True
     pks = rng.permutation(n).astype(np.int64) * 3 + 1
     return q, codes, books, mask, pks
+
+
+def nan_as_empty(d, p, r):
+    """The plain quantized version's (adc, pks, rows) with its NaN slots
+    taken as empty ones (+inf, SENTINEL, SENTINEL).  A row whose ADC is
+    NaN never enters the kernel's answer, as it never enters the TPU
+    kernel's running list, which starts with KMAX empty slots that order
+    before it.  The plain version sorts every kept row at once, so it
+    returns such rows after the unadmitted rows' empty slots.  NaN sorts
+    last, so only trailing slots change."""
+    import torch
+    from repro_torch.kernels import ref
+    nan = torch.isnan(d)
+    sent = torch.full_like(p, ref.SENTINEL)
+    return (torch.where(nan, torch.full_like(d, float("inf")), d),
+            torch.where(nan, sent, p), torch.where(nan, sent, r))
 
 
 def adc_edge_checks(dev, errs) -> None:
     """The two ADC kernels against their plain versions, bitwise: the
     quantized scan through the main path's host prep (wrapper level, all
     KMAX slots) and through ``ops`` at k' in {1, 40, 128} against the same
-    host logic over the plain version; the single-query ADC at ragged
-    shapes."""
+    host logic over the plain version, NaN ADC values taken as empty slots
+    (``nan_as_empty``); the single-query ADC at ragged shapes."""
     import torch
     from repro_torch.kernels import ops, pq_adc, quantized_scan, ref
     rng = np.random.default_rng(1)
@@ -510,13 +557,14 @@ def adc_edge_checks(dev, errs) -> None:
                            (16, 1, 4, "full"), (16, 2048, 8, "tile_empty"),
                            (8, 1100, 8, "dup"), (10, 700, 4, "partial"),
                            (8, 262_144, 8, "partial"), (8, 262_144, 8, "dup"),
-                           (16, 131_072, 8, "holes")]:
+                           (16, 131_072, 8, "holes"), (8, 1000, 8, "nan"),
+                           (16, 262_144, 8, "nan")]:
         q, codes, books, mask, pks = adc_case(rng, nq, n, m, kind)
         lut = ops.adc_lut(q, books)
         args, _ = ops.quantized_kernel_args(lut, codes, mask, pks, dev)
         out = quantized_scan.quantized_scan_topk(*args)
         torch.cuda.synchronize()
-        plain = quantized_scan.plain(*args[:5])
+        plain = nan_as_empty(*quantized_scan.plain(*args[:5]))
         for a, b, what in zip(out, plain, ("adc", "pks", "rows")):
             check(same_bits(a, b), f"quantized_scan_topk {what} differ from "
                   f"the plain version (nq={nq} n={n} m={m} {kind})")
@@ -534,6 +582,8 @@ def adc_edge_checks(dev, errs) -> None:
             gd, gr = ops.quantized_scan_topk(q, codes, books, mask, pks, k,
                                              device=dev)
             wd, wr = ops._quantized_kernel(lut, codes, mask, pks, k, host)
+            wr = np.where(np.isnan(wd), -1, wr)     # as nan_as_empty
+            wd = np.where(np.isnan(wd), np.float32(np.inf), wd)
             check(np.array_equal(gd.view(np.uint32), wd.view(np.uint32))
                   and np.array_equal(gr, wr),
                   f"ops.quantized_scan_topk k'={k} differs from the plain "
@@ -1328,9 +1378,12 @@ def graph_path(dev, record):
 def install_recorder(record):
     """Keep the inputs the paths hand each kernel wrapper (one set per
     template for the two scans, the last fused call apart, one per shape
-    for ivf_scan, bitmap_filter and pq_adc, every call of the merge and
-    the beam search, the beam search's outputs too).  A
-    ``template`` of None records no scan inputs."""
+    for ivf_scan, bitmap_filter and pq_adc up to the 64 or 80 that are
+    timed, every call of the merge and the beam search, the beam search's
+    outputs too).  The first call of each ivf_scan, bitmap_filter and
+    pq_adc shape is held against the plain version on its own inputs as
+    it runs (``hold_plain``).  A ``template`` of None records no scan
+    inputs."""
     from repro_torch.kernels import (bitmap_filter, fused_scan, graph_search,
                                      ivf_scan, pq_adc, quantized_scan,
                                      topk_merge)
@@ -1354,19 +1407,21 @@ def install_recorder(record):
 
     def per_shape(kind):
         counts = record[kind + "_calls"] = {}
+        errs = record[kind + "_err"] = {}
 
         def rec(x, y):
             key = tuple(x.shape) + tuple(y.shape)
             counts[key] = counts.get(key, 0) + 1
-            # inputs of the first 64 shapes, and of 16 more single-query
-            # ivf_scan shapes (the few launches of the probes come late)
+            # inputs to time: of the first 64 shapes, and of 16 more
+            # single-query ivf_scan shapes (the probes' launches come late)
             held = len(record[kind])
             if key not in record[kind] and (held < 64 or (
                     kind == "ivf" and x.shape[0] <= 8 and held < 80)):
-                record[kind][key] = [x.clone(), y.clone(), 0]
-            if key in record[kind]:
-                record[kind][key][2] += 1
-            return orig[kind](x, y)
+                record[kind][key] = (x.clone(), y.clone())
+            out = orig[kind](x, y)
+            if key not in errs:       # every shape, at its first call
+                errs[key] = hold_plain(kind, key, x, y, out)
+            return out
         return rec
 
     def merge(d, i, k):
@@ -1442,24 +1497,25 @@ def measure(record, orig, launches, errs, dev):
         calls_of = record[kind + "_calls"]
         ranked = sorted(record[kind].items(), key=lambda kv: -calls_of[kv[0]])
         timed = {k for k, _ in ranked[:3 if kind == "ivf" else 1]}
+        errs_of = record[kind + "_err"]
+        check(set(errs_of) == set(calls_of), f"{name}: a path shape was "
+              f"not held against the plain version")
+        errs[name] = max(errs[name], max(errs_of.values()))
         if kind == "ivf":
             timed |= {k for k, _ in [kv for kv in ranked
                                      if kv[0][0] <= 8][:2]}
             log(f"ivf_scan: {len(calls_of)} path shapes, "
                 f"{sum(calls_of.values())} launches; inputs held for "
-                f"{len(record['ivf'])}")
+                f"timing for {len(record['ivf'])}")
             for key, n in sorted(calls_of.items(), key=lambda kv: -kv[1]):
-                if key not in record["ivf"]:
-                    log(f"ivf_scan path shape {key}: {n} launches, "
-                        f"{ivf_scan.launch_path(key[0], key[2], key[1])} "
-                        f"path, "
-                        f"inputs not held")
-        for key, (x, y, _) in ranked:
+                log(f"ivf_scan path shape {key}: {n} launches, "
+                    f"{ivf_scan.launch_path(key[0], key[2], key[1])} path, "
+                    f"max|dd2| {errs_of[key]:.3g}")
+        for key, (x, y) in ranked:
+            if key not in timed:
+                continue
             calls = calls_of[key]
-            o = orig[kind](x, y)
-            torch.cuda.synchronize()
             if kind == "ivf":
-                err = ivf_compare(x, y, o, ref.ivf_scan_ref(x, y))
                 nq, d = x.shape
                 n = y.shape[0]
                 nbytes = 4 * (nq * d + n * d + nq * n)
@@ -1468,9 +1524,6 @@ def measure(record, orig, launches, errs, dev):
                 plain = (lambda x=x, y=y: ref.ivf_scan_ref(x, y))
                 path = ivf_scan.launch_path(nq, n, d)
             elif kind == "pq":
-                check(same_bits(o, ref.pq_adc_ref(x, y)), f"pq_adc main-path "
-                      f"input {key}: differs from the plain version")
-                err = 0.0
                 n, m = x.shape
                 nbytes, flops = n * m + 4 * y.numel() + 4 * n, n * m
                 # the library yardstick: one gather of the LUT, summed
@@ -1479,21 +1532,11 @@ def measure(record, orig, launches, errs, dev):
                 plain = (lambda x=x, y=y: ref.pq_adc_ref(x, y))
                 path = None
             else:
-                want = ref.bitmap_filter_ref(x, y)
-                err = float((o.bool() != want).sum())
-                check(err == 0, f"bitmap_filter main-path input {key}: "
-                      f"{int(err)} rows differ")
                 n, c = x.shape
                 nbytes, flops = 4 * n * c + n + 8 * c, 2 * n * c
                 lib = None
                 plain = (lambda x=x, y=y: ref.bitmap_filter_ref(x, y))
                 path = None
-            errs[name] = max(errs[name], err)
-            if kind == "ivf":
-                log(f"ivf_scan path shape {key}: {calls} launches, {path} "
-                    f"path, max|dd2| {err:.3g}")
-            if key not in timed:
-                continue
             e_ms = cuda_ms(lambda x=x, y=y: orig[kind](x, y))
             k_ms = e_ms if kind == "bitmap" else kernel_ms(
                 lambda x=x, y=y: orig[kind](x, y), name)
@@ -1517,8 +1560,8 @@ def measure(record, orig, launches, errs, dev):
                 best = (name, k_ms, p_ms, bound, by, l_ms)
                 log(f"kernel {name} {key}: plain {p_ms:.4f} ms, library "
                     f"{l_ms if l_ms is None else round(l_ms, 4)} ms")
-        log(f"kernel {name}: {len(record[kind])} path shapes held "
-            f"against the plain version, max abs err {errs[name]:.3g}")
+        log(f"kernel {name}: all {len(errs_of)} path shapes held against "
+            f"the plain version, max abs err {errs[name]:.3g}")
         out.append(best)
     if record["merge"]:
         out.append(measure_merge(record, orig))

@@ -10,7 +10,14 @@
 // runs over j in order, in fp32, from 0: the TPU kernel's one-hot
 // contraction adds one exact term per j in that order, so the same
 // inputs give the same bits (this file must not be built with fast-math,
-// which would let the compiler reassociate it).
+// which would let the compiler reassociate it).  A row whose ADC is NaN
+// never enters the answer: every filter below keeps adc <= tau only, as
+// the TPU kernel's running list, which starts with KMAX empty slots that
+// order before NaN, never takes one.  (The TPU kernel's one-hot
+// contraction also makes a NaN LUT entry NaN for every row of its query,
+// NaN * 0 being NaN; this file sums only the entries a row's codes pick.
+// ref.quantized_topk_ref, one sort over every kept row, returns NaN rows
+// after the empty slots of the unadmitted ones.)
 //
 // What bounds it on Hopper: bytes (~16 MB of codes and ~16 MB of bitmap at
 // the main path's 8 queries x 2 M rows, m = 8) and, above them, the
@@ -769,12 +776,12 @@ cudaError_t launch_all(const float* lut, const uint8_t* codes,
 // lut (nq, m*256) fp32, 16-byte aligned, with nq a multiple of 8; codes
 // (rows, m) uint8 with rows a multiple of 512 covering every kept block;
 // mask (nq, n_mask) uint8; pks (rows,) int32; keep (nkeep,) int32 block
-// ids; occ (nq / 8, nkeep) int32; scratch: wit (nq, n_chunks * 4) uint32,
+// ids; occ (nq / 8, nkeep) int32; scratch: wit (nq, n_chunks * 2) uint32,
 // tau (nq,) fp32, lut_g (nq, m*256) fp32 16-byte aligned, reg_d/reg_r and
 // cand_d/cand_r (nq, n_chunks * 128), cand_n (nq,) int32; codes 16-byte
 // aligned; out_* (nq, 128); smem_wrapper the wrapper's
 // shared-memory sum for this m.  Chunk c holds kept blocks [c * per,
-// (c + 1) * per); n_chunks <= 256.
+// (c + 1) * per); n_chunks <= 512.
 extern "C" int quantized_scan_topk_launch(
     const float* lut, const uint8_t* codes, const uint8_t* mask,
     const int* pks, const int* keep, const int* occ, void* wit, float* tau,

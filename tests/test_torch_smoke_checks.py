@@ -322,3 +322,111 @@ def test_ivf_edge_shapes_reach_every_launch_path():
     assert {2, 16, 128} <= {s[2] for s in cs.IVF_EDGE}
     assert any(s[1] % ivf_scan.BLOCK_N for s in cs.IVF_EDGE)
     assert any(s[3] for s in cs.IVF_EDGE)
+
+
+def test_recorder_holds_every_path_shape_against_the_plain_version(
+        monkeypatch):
+    """The smoke's recorder holds the first call of every ivf_scan,
+    bitmap_filter and pq_adc shape against the plain version, also past
+    the shapes whose inputs it keeps for timing, and fails on a wrong
+    output."""
+    from repro_torch.kernels import (bitmap_filter, fused_scan, graph_search,
+                                     ivf_scan, pq_adc, quantized_scan,
+                                     topk_merge)
+    for mod, name in ((fused_scan, "fused_scan_topk"),
+                      (quantized_scan, "quantized_scan_topk"),
+                      (ivf_scan, "ivf_scan"), (pq_adc, "pq_adc"),
+                      (bitmap_filter, "bitmap_filter"),
+                      (topk_merge, "batched_topk_merge"),
+                      (graph_search, "graph_search_topk")):
+        monkeypatch.setattr(mod, name, getattr(mod, name))   # restored after
+    record = {}
+    cs.install_recorder(record)
+    rng = np.random.default_rng(7)
+    for nq in range(1, 91):
+        for _ in range(2):
+            q = torch.from_numpy(rng.normal(size=(nq, 3)).astype(np.float32))
+            x = torch.from_numpy(rng.normal(size=(40, 3)).astype(np.float32))
+            ivf_scan.ivf_scan(q, x)
+    codes = torch.from_numpy(rng.integers(0, 256, (50, 4), dtype=np.uint8))
+    lut = torch.from_numpy(rng.normal(size=(4, 256)).astype(np.float32))
+    pq_adc.pq_adc(codes, lut)
+    cols = torch.from_numpy(rng.uniform(0, 1, (60, 2)).astype(np.float32))
+    bitmap_filter.bitmap_filter(cols, torch.tensor([[0.2, 0.8], [0.1, 0.5]]))
+    assert len(record["ivf_calls"]) == 90
+    assert set(record["ivf_err"]) == set(record["ivf_calls"])
+    assert set(record["ivf_err"].values()) == {0.0}
+    assert len(record["ivf"]) == 64             # inputs kept for timing
+    assert len(record["pq_err"]) == len(record["bitmap_err"]) == 1
+
+    def wrong(q, x, orig=ivf_scan.ivf_scan):
+        out = orig(q, x)
+        out[0, 0] += 1.0
+        return out
+    monkeypatch.setattr(ivf_scan, "ivf_scan", wrong)
+    cs.install_recorder(record)
+    with pytest.raises(cs.SmokeFailure):
+        ivf_scan.ivf_scan(torch.ones((2, 3)), torch.zeros((5, 3)))
+
+
+def test_nan_adc_rows_never_enter_the_answer():
+    """The smoke's NaN case: the plain quantized version returns rows
+    whose ADC is NaN after its empty slots; ``nan_as_empty`` takes them as
+    empty, which is what the Pallas kernel returns for a query whose every
+    row is NaN (its running list starts with KMAX empty slots, and NaN
+    orders after them).  The other queries' 128 best rows are finite, so
+    the map leaves them as they are."""
+    import jax.numpy as jnp
+    from repro.kernels import quantized_scan as r_qs
+    from repro_torch.kernels import fused_scan, ops, quantized_scan, ref
+    rng = np.random.default_rng(1)
+    q, codes, books, mask, pks = cs.adc_case(rng, 8, 1000, 8, "nan")
+    lut = ops.adc_lut(q, books)
+    assert np.isnan(lut[0]).all() and np.isnan(lut[1:, 0, :64]).all()
+    args, _ = ops.quantized_kernel_args(lut, codes, mask, pks,
+                                        torch.device("cpu"))
+    plain = quantized_scan.plain(*args[:5])
+    d, p, r = cs.nan_as_empty(*plain)
+    assert torch.isnan(plain[0][0]).sum() > 0 and not torch.isnan(d).any()
+    assert torch.isinf(d[0]).all()
+    assert (p[0] == ref.SENTINEL).all() and (r[0] == ref.SENTINEL).all()
+    for got, want in zip((d, p, r), plain):
+        assert cs.same_bits(got[1:], want[1:])
+    ck, mk, pk = fused_scan.compact(*args[1:5])
+    occ = np.ones((1, ck.shape[0] // fused_scan.BLOCK_N), np.int32)
+    wd, wp, wi = (np.array(a) for a in r_qs.quantized_scan_topk(
+        jnp.asarray(lut[:8].reshape(8, -1)),
+        jnp.asarray(ck.numpy().astype(np.int32)), jnp.asarray(mk.numpy()),
+        jnp.asarray(pk.numpy()), jnp.asarray(occ), interpret=True))
+    assert cs.same_bits(d[0], torch.from_numpy(wd[0]))
+    assert np.array_equal(p[0].numpy(), wp[0])
+    assert np.array_equal(r[0].numpy(), wi[0])
+
+
+def test_kernel_ms_traces_again_when_a_trace_misses_launches(monkeypatch):
+    """A trace that misses kernel records is taken again, up to three
+    times; a kernel short of one launch a call in all three fails."""
+    import torch.profiler
+    from torch.autograd import DeviceType
+    held = iter([14, 20, 19, 19, 19])
+
+    class Trace:
+        def __enter__(self):
+            n = next(held)
+            span = types.SimpleNamespace(start=0, end=5)
+            self.ev = [types.SimpleNamespace(name="qscan_scan<8>",
+                                             time_range=span,
+                                             device_type=DeviceType.CUDA)
+                       for _ in range(n)]
+            return self
+
+        def __exit__(self, *a):
+            return False
+
+        def events(self):
+            return self.ev
+    monkeypatch.setattr(torch.profiler, "profile", lambda **kw: Trace())
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda: None)
+    assert cs.kernel_ms(lambda: None, "qscan_scan", reps=20) == 0.005
+    with pytest.raises(cs.SmokeFailure, match="19 launches"):
+        cs.kernel_ms(lambda: None, "qscan_scan", reps=20)

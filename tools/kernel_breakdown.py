@@ -1,39 +1,42 @@
 #!/usr/bin/env python3
-"""Break the quantized scan's pass 1 down on the card, and hold this tree's
-``quantized_scan`` and ``ivf_scan`` kernels against an earlier tree's.
+"""Break the earlier quantized scan down on the card, and hold this tree's
+``quantized_scan`` and ``ivf_scan`` kernels against the earlier ones.
 
-    python3 tools/kernel_breakdown.py --parent DIR
+    python3 tools/kernel_breakdown.py --parent DIR [--shapes-from LOG]
 
-``DIR`` is the ``src/repro_torch/kernels/csrc`` directory of an earlier tree,
-unpacked from ``git archive <commit> src/repro_torch/kernels`` into a
-directory that ``.gitignore`` lists (``archive_check/``).  The script
+``DIR`` is the ``src/repro_torch/kernels/csrc`` directory of the parent
+commit (``a42a644``, whose quantized scan this tree replaced), unpacked
+from ``git archive a42a644 src/repro_torch/kernels`` into a directory that
+``.gitignore`` lists (``archive_check/``).  The patches below match that
+commit's sources line for line, so the variants build from it alone.  The
+script
 
-1. builds that tree's ``quantized_scan.cu`` as it is and in variants with
-   one part taken out (the offers to the top-k lists, the LUT gathers, the
-   mask reads, both the offers and the gathers) or with its inserts counted,
-   and times each variant's pass 1 at the shape of the quantized path's g6
-   batch (8 queries x 2,097,152 rows, m = 8, every row admitted, 4,096 kept
-   blocks) by its device time in a ``torch.profiler`` trace, with the
-   earlier chunking, one chunk and 2,048 chunks;
+1. builds that ``quantized_scan.cu`` as it is and in variants with one
+   part taken out (the offers to the top-k lists, the LUT gathers, the
+   mask reads, both the offers and the gathers) or with its list inserts
+   counted, and times each variant's two launches (pass 1, the chunk
+   merge) by device time at the shape of the quantized path's g6 batch (8
+   queries x 2,097,152 rows, m = 8, every row admitted, 4,096 kept
+   blocks), with the earlier chunking, one chunk and 2,048 chunks;
 2. times this tree's kernel on the same inputs and holds its ADC values,
    pks and rows against the earlier kernel's, bitwise;
-3. builds that tree's ``ivf_scan.cu`` and holds this tree's kernel against
-   it bitwise at the paths' shapes (those ``--shapes-from`` a
-   ``chip_smoke.py`` log lists too) and at edge shapes, timing both at
-   the listed shapes (``IVF_SHAPES``);
-4. times this tree's ``ivf_scan`` built with other wide tiles.
+3. builds that ``ivf_scan.cu`` and holds this tree's kernel against it
+   bitwise at ``IVF_SHAPES`` and at every path shape a ``chip_smoke.py``
+   log lists (``--shapes-from``), timing both at ``IVF_SHAPES``.
 
 The g6-shaped inputs are drawn from ``--seed`` on the card: uniform codes
 and squared-normal LUT entries, so the ADC values are i.i.d. over rows (the
-real g6 batch is timed by ``chip_smoke.py``).  The variants are written to
-and built in ``src/repro_torch/kernels/_build/breakdown/`` (ignored by git).
-Needs one CUDA card and ``nvcc``; exits non-zero without them.
+real g6 batch is timed by ``chip_smoke.py``).  Timers and the bitwise
+comparison are ``chip_smoke.py``'s.  The variants are written to and built
+in ``src/repro_torch/kernels/_build/breakdown/`` (ignored by git).  Needs
+one CUDA card and ``nvcc``; exits non-zero without them.
 """
 from __future__ import annotations
 
 import argparse
 import ctypes
 import json
+import re
 import shutil
 import subprocess
 import sys
@@ -41,14 +44,17 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT / "src"))
+sys.path.insert(0, str(ROOT))
+
+import chip_smoke as cs  # noqa: E402
 
 G6_NQ, G6_ROWS, G6_M = 8, 2_097_152, 8
-REPS = 20
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # the earlier tree's launchers (src/repro_torch/kernels/build.py there)
 QSCAN_ARGS = [_P] * 12 + [_I, _I, _L, _I, _I, _I, _L, _P]
 IVF_ARGS = [_P, _P, _P, _I, _I, _I, _P]
+PASS1, MERGE = "quantized_scan_pass1", "topk_merge_chunks"
 
 # text patches of the earlier quantized_scan.cu / topk_list.cuh
 OFFER = ("        offer(L, v, dist_s[warp * kSlice + rr], cp, cr, lane, wd, "
@@ -85,57 +91,9 @@ VARIANTS = {
                               "atomicAdd(&g_inserts, 1ull);\n", 1)]),
 }
 
-# text patches of this tree's quantized_scan.cu: its scan with one part
-# taken out
-NEW_GATHER = ("    const float4 a = *reinterpret_cast<const float4*>(e + 4 * sw);\n"
-              "    const float4 b = *reinterpret_cast<const float4*>"
-              "(e + 4 * (sw ^ 1));")
-NEW_NO_GATHER = ("    const float4 a = make_float4((float)c, (float)sw, 1.f, 2.f);"
-                 "\n    const float4 b = a;\n    (void)e;")
-NEW_MASK = ("      ok |= (__ldg(mask + (q0 + q) * n_mask + prow) != 0 ? 1u : 0u) "
-            "<< q;")
-NEW_FILTER = ("      const bool pass = ((ok >> q) & 1u) && acc[q] <= "
-              "thr[q];")
-NEW_VARIANTS = {
-    "no LUT gathers": [(NEW_GATHER, NEW_NO_GATHER)],
-    "no mask reads": [(NEW_MASK, "      ok |= 1u << q;")],
-    "nothing queued": [(NEW_FILTER, NEW_FILTER.replace(
-        "acc[q] <= thr[q]", "acc[q] < -3e38f"))],
-    "scan loop skipped (LUT copy and writes only)": [(
-        "  while (s < end) {                 // s is the same on every thread",
-        "  while (false && s < end) {")],
-    "LUT copied by float4 loads and stores": [(
-        "    cp_async16(lut_s + 4 * i, lut_g + 4 * i);",
-        "    *reinterpret_cast<float4*>(lut_s + 4 * i) =\n"
-        "        __ldg(reinterpret_cast<const float4*>(lut_g) + i);")],
-    "LUT not staged (hashed values in place)": [(
-        "  stage_lut(lut_s, lut_g + q0 * m * kCodes, m, tid);",
-        "  for (int i = tid; i < kBlockQ * m * kCodes; i += kThreads)\n"
-        "    lut_s[i] = (float)((i * 2654435761u) >> 24);")],
-}
-
-# text patches of this tree's ivf_scan.cu: the 128-row wide path with
-# other tiles, another register cap or ring depth
-IVF_W128 = "launch_wide<8>(q, x, out, nq, n, d, vec, s)"
-IVF_W64 = "launch_wide<4>(q, x, out, nq, n, d, vec, s)"
-IVF_TN = "constexpr int kTN = 4;"
-IVF_VARIANTS = {
-    "wide 64 x 64 tiles (4 x 4 a thread)": [(IVF_W128, IVF_W64)],
-    "wide 64 x 128 tiles (4 x 8 a thread)": [
-        (IVF_W128, IVF_W64), (IVF_TN, "constexpr int kTN = 8;")],
-    "wide 64 x 32 tiles (4 x 2 a thread)": [
-        (IVF_W128, IVF_W64), (IVF_TN, "constexpr int kTN = 2;")],
-    "wide, one block an SM (no register cap)": [(
-        "__global__ void __launch_bounds__(kWide, 2)",
-        "__global__ void __launch_bounds__(kWide, 1)")],
-    "wide, two ring slots": [(
-        "constexpr int kRing = 3;", "constexpr int kRing = 2;")],
-}
-IVF_VARIANT_SHAPES = [(2048, 512, 128), (2048, 512, 16), (16384, 512, 128),
-                      (2048, 2048, 128)]
-
-# ivf_scan shapes (nq, n, d): the paths' (chip_smoke.py prints them with
-# their launch counts) and edge shapes that reach both launch paths
+# ivf_scan shapes (nq, n, d) timed against the earlier kernel: the paths'
+# most launched (chip_smoke.py prints them with their launch counts), the
+# single-query ones up to 131,072 rows, and edge shapes of every launch path
 IVF_SHAPES = [(2048, 512, 128), (8, 512, 128), (8, 1024, 128),
               (8, 2048, 128), (8, 4096, 128), (8, 8192, 128),
               (8, 16384, 128), (8, 32768, 128), (8, 131072, 128),
@@ -143,10 +101,6 @@ IVF_SHAPES = [(2048, 512, 128), (8, 512, 128), (8, 1024, 128),
               (1, 1000, 100), (1, 128, 7), (8, 1537, 2), (9, 512, 128),
               (64, 2048, 16), (13, 700, 7), (2048, 4096, 128),
               (2056, 512, 128), (4272, 512, 128), (1024, 512, 128)]
-
-
-class Failure(RuntimeError):
-    pass
 
 
 def log(*a):
@@ -158,7 +112,7 @@ def patch(text: str, subs) -> str:
         old, new = sub[0], sub[1]
         count = sub[2] if len(sub) > 2 else -1
         if old not in text:
-            raise Failure(f"patch target not found: {old[:60]!r}")
+            raise cs.SmokeFailure(f"patch target not found: {old[:60]!r}")
         text = text.replace(old, new, count)
     return text
 
@@ -184,62 +138,11 @@ def build(src_dir: Path, name: str, subs_cu, subs_h, out_dir: Path):
                                  stderr=subprocess.STDOUT, text=True)
 
 
-def kernel_times(fn, reps: int = REPS, warm: int = 3) -> dict:
-    """Mean device time per call of ``fn`` of each kernel it launches, by
-    name, from a ``torch.profiler`` trace (copies and fills left out)."""
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    for _ in range(warm):
-        fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    out = {}
-    for e in prof.events():
-        if getattr(e, "device_type", None) != DeviceType.CUDA:
-            continue
-        if e.name.startswith(("Memcpy", "Memset")):
-            continue
-        span = (e.time_range.end - e.time_range.start) / 1e3
-        out[e.name] = out.get(e.name, 0.0) + span / reps
-    if not out:
-        raise Failure("the trace holds no kernel")
-    return out
-
-
-def event_ms(fn, reps: int = REPS, warm: int = 3) -> float:
-    import torch
-    for _ in range(warm):
-        fn()
-    torch.cuda.synchronize()
-    a = torch.cuda.Event(enable_timing=True)
-    b = torch.cuda.Event(enable_timing=True)
-    a.record()
-    for _ in range(reps):
-        fn()
-    b.record()
-    torch.cuda.synchronize()
-    return a.elapsed_time(b) / reps
-
-
-def short(times: dict) -> str:
-    names = {k: k.replace("(anonymous namespace)::", "").split("(")[0]
-             for k in times}
-    return ", ".join(f"{names[k]} {v:.4f} ms" for k, v in sorted(times.items()))
-
-
-def same_bits(a, b) -> bool:
-    import torch
-    a, b = a.detach().cpu().contiguous(), b.detach().cpu().contiguous()
-    if a.shape != b.shape or a.dtype != b.dtype:
-        return False
-    if a.dtype == torch.float32:
-        a, b = a.view(torch.int32), b.view(torch.int32)
-    return bool(torch.equal(a, b))
+def load(lib_path: Path, proc, what: str) -> ctypes.CDLL:
+    text, _ = proc.communicate()
+    if proc.returncode != 0:
+        raise cs.SmokeFailure(f"nvcc failed for {what}:\n{text}")
+    return ctypes.CDLL(str(lib_path))
 
 
 def g6_inputs(seed: int):
@@ -257,23 +160,15 @@ def g6_inputs(seed: int):
     return lut, codes, mask, pks, keep, occ
 
 
-def qscan_breakdown(parent: Path, seed: int, work: Path,
-                    quick: bool = False) -> dict:
+def qscan_breakdown(parent: Path, seed: int, work: Path) -> dict:
     import torch
     from repro_torch.kernels import fused_scan, quantized_scan
-    variants = {"as is": VARIANTS["as is"]} if quick else VARIANTS
-    builds = {v: build(parent, "quantized_scan", cu, h,
-                       work / f"qscan_{i}")
-              for i, (v, (cu, h)) in enumerate(variants.items())}
     libs = {}
-    for v, (lib, proc) in builds.items():
-        text, _ = proc.communicate()
-        if proc.returncode != 0:
-            raise Failure(f"nvcc failed for variant {v}:\n{text}")
-        regs = [ln.strip() for ln in text.splitlines()
-                if "registers" in ln or "spill" in ln]
-        log(f"built variant {v!r}: {' | '.join(regs[-2:])}")
-        libs[v] = ctypes.CDLL(str(lib))
+    for v, (lib, proc) in {v: build(parent, "quantized_scan", cu, h,
+                                    work / f"qscan_{i}")
+                           for i, (v, (cu, h)) in
+                           enumerate(VARIANTS.items())}.items():
+        libs[v] = load(lib, proc, f"variant {v}")
         libs[v].quantized_scan_topk_launch.argtypes = QSCAN_ARGS
         libs[v].quantized_scan_topk_launch.restype = _I
     args = g6_inputs(seed)
@@ -297,7 +192,7 @@ def qscan_breakdown(parent: Path, seed: int, work: Path,
                      *(t.data_ptr() for t in part + out), nq, G6_M,
                      G6_ROWS, nkeep, per, chunks, smem, stream)
             if err:
-                raise Failure(f"variant {v} launch failed: {err}")
+                raise cs.SmokeFailure(f"variant {v} launch failed: {err}")
             return out
         return call
 
@@ -307,22 +202,22 @@ def qscan_breakdown(parent: Path, seed: int, work: Path,
     res = {}
     base = caller("as is", per0, chunks0)()
     torch.cuda.synchronize()
-    for v in variants:
+    for v in VARIANTS:
         for gname, (per, chunks) in grids.items():
-            if (v != "as is" or quick) and not gname.endswith("(as chunked)"):
+            if v != "as is" and not gname.endswith("(as chunked)"):
                 continue
             call = caller(v, per, chunks)
             out = call()
             torch.cuda.synchronize()
             if v in ("as is", "no mask reads", "inserts counted"):
                 for x, y, what in zip(out, base, ("adc", "pks", "rows")):
-                    if not same_bits(x, y):
-                        raise Failure(f"variant {v} {gname}: {what} differ")
-            t = kernel_times(call, reps=5 if chunks == 1 else REPS,
-                             warm=1 if chunks == 1 else 3)
-            key = f"{v} / {gname}"
-            res[key] = t
-            log(f"qscan {key}: {short(t)}")
+                    cs.check(cs.same_bits(x, y),
+                             f"variant {v} {gname}: {what} differ")
+            reps, warm = (5, 1) if chunks == 1 else (20, 3)
+            t = {k: cs.kernel_ms(call, k, reps, warm) for k in (PASS1, MERGE)}
+            res[f"{v} / {gname}"] = t
+            log(f"qscan {v} / {gname}: pass 1 {t[PASS1]:.4f} ms, merge "
+                f"{t[MERGE]:.4f} ms device time")
             if v == "inserts counted":
                 lib = libs[v]
                 lib.breakdown_inserts.argtypes = [_I]
@@ -336,85 +231,26 @@ def qscan_breakdown(parent: Path, seed: int, work: Path,
                     f"merge) for {cands} candidates ({100 * n / cands:.2f} %)")
                 res["inserts"] = n
     # this tree's kernel on the same inputs
-    tau, cand_n, _ = qscan_internals(args)
-    log(f"qscan this tree: per-query threshold {tau.tolist()}, candidates "
-        f"reaching the select {cand_n.tolist()}")
     new = quantized_scan.quantized_scan_topk(*args)
     torch.cuda.synchronize()
     for x, y, what in zip(new, base, ("adc", "pks", "rows")):
-        if not same_bits(x, y):
-            raise Failure(f"this tree's quantized_scan_topk: {what} differ "
-                          f"from the earlier kernel's")
-    t_new = kernel_times(lambda: quantized_scan.quantized_scan_topk(*args))
-    e_new = event_ms(lambda: quantized_scan.quantized_scan_topk(*args))
-    e_old = event_ms(caller("as is", per0, chunks0))
-    log(f"qscan this tree: {short(t_new)} (sum {sum(t_new.values()):.4f} ms; "
-        f"{e_new:.4f} ms a call by CUDA events, the earlier kernel "
-        f"{e_old:.4f}); adc, pks and rows bitwise equal to the earlier "
-        f"kernel's")
+        cs.check(cs.same_bits(x, y), f"this tree's quantized_scan_topk: "
+                 f"{what} differ from the earlier kernel's")
+    t_new = cs.kernel_ms(lambda: quantized_scan.quantized_scan_topk(*args),
+                         None)
+    e_new = cs.cuda_ms(lambda: quantized_scan.quantized_scan_topk(*args))
+    e_old = cs.cuda_ms(caller("as is", per0, chunks0))
+    log(f"qscan this tree: {t_new:.4f} ms device time ({e_new:.4f} ms a call "
+        f"by CUDA events, the earlier kernel {e_old:.4f}); adc, pks and rows "
+        f"bitwise equal to the earlier kernel's")
     res["this tree"] = t_new
     res["events"] = {"this tree": e_new, "earlier": e_old}
-    if not quick:
-        res.update(new_breakdown(args, work))
     return res
-
-
-def new_breakdown(args, work: Path) -> dict:
-    """This tree's kernel with one part of its scan taken out, each
-    variant's four launches timed by device time."""
-    from repro_torch.kernels import build as kb
-    builds = {v: build(kb.CSRC, "quantized_scan", cu, [], work / f"new_{i}")
-              for i, (v, cu) in enumerate(NEW_VARIANTS.items())}
-    res = {}
-    for v, (lib_path, proc) in builds.items():
-        text, _ = proc.communicate()
-        if proc.returncode != 0:
-            raise Failure(f"nvcc failed for variant {v}:\n{text}")
-        lib = ctypes.CDLL(str(lib_path))
-        fn = lib.quantized_scan_topk_launch
-        fn.argtypes = kb.SIGNATURES["quantized_scan"][
-            "quantized_scan_topk_launch"]
-        fn.restype = _I
-        tau, cand_n, _ = qscan_internals(args, fn)
-        t = kernel_times(lambda: qscan_internals(args, fn))
-        res[f"this tree, {v}"] = t
-        log(f"qscan this tree, {v}: {short(t)} (sum "
-            f"{sum(t.values()):.4f} ms); candidates reaching the select "
-            f"{cand_n.tolist()}")
-    return res
-
-
-def qscan_internals(args, fn=None):
-    """This tree's quantized launcher (or ``fn``, one of the same
-    signature) called as its wrapper calls it, with the scratch kept:
-    (per-query threshold, candidates the scan handed to the select, the
-    outputs), the first two on the host."""
-    import torch
-    from repro_torch.kernels import build as kb
-    from repro_torch.kernels import quantized_scan as qs
-    lut, codes, mask, pks, keep, occ = args
-    dev, (nq, m), nkeep = lut.device, (lut.shape[0], codes.shape[1]), \
-        keep.shape[0]
-    per, chunks = qs.chunking(nq // 8, nkeep, kb.sm_count(dev))
-    scratch = qs.launch_scratch(nq, chunks, m, dev)
-    out = tuple(torch.empty((nq, 128), dtype=t, device=dev)
-                for t in (torch.float32, torch.int32, torch.int32))
-    err = (fn or kb.launcher("quantized_scan"))(
-        lut.data_ptr(), codes.data_ptr(), mask.data_ptr(), pks.data_ptr(),
-        keep.data_ptr(), occ.data_ptr(), *(t.data_ptr() for t in scratch),
-        *(t.data_ptr() for t in out), nq, m, mask.shape[1], nkeep, per,
-        chunks, qs.smem_bytes(m), torch.cuda.current_stream(dev).cuda_stream)
-    if err:
-        raise Failure(f"quantized launch failed: {err}")
-    torch.cuda.synchronize()
-    tau, cand_n = scratch[1], scratch[7]
-    return tau.cpu(), cand_n.cpu(), out
 
 
 def path_shapes(log_path: Path):
     """The (nq, n, d) ivf_scan shapes a chip_smoke.py log lists as path
     shapes ("ivf_scan path shape (nq, d, n, d): N launches")."""
-    import re
     pat = re.compile(r"ivf_scan path shape \((\d+), (\d+), (\d+), \d+\)")
     return sorted({(int(a), int(c), int(b))
                    for a, b, c in pat.findall(log_path.read_text())})
@@ -424,11 +260,8 @@ def ivf_compare(parent: Path, seed: int, work: Path, extra=()) -> dict:
     import numpy as np
     import torch
     from repro_torch.kernels import ivf_scan
-    lib_path, proc = build(parent, "ivf_scan", [], [], work / "ivf_parent")
-    text, _ = proc.communicate()
-    if proc.returncode != 0:
-        raise Failure(f"nvcc failed for the earlier ivf_scan:\n{text}")
-    lib = ctypes.CDLL(str(lib_path))
+    lib = load(*build(parent, "ivf_scan", [], [], work / "ivf_parent"),
+               "the earlier ivf_scan")
     lib.ivf_scan_launch.argtypes = IVF_ARGS
     lib.ivf_scan_launch.restype = _I
     dev = torch.device("cuda")
@@ -449,77 +282,26 @@ def ivf_compare(parent: Path, seed: int, work: Path, extra=()) -> dict:
             err = lib.ivf_scan_launch(qt.data_ptr(), xt.data_ptr(),
                                       old.data_ptr(), nq, n, d, stream)
             if err:
-                raise Failure(f"earlier ivf_scan launch failed: {err}")
+                raise cs.SmokeFailure(f"earlier ivf_scan launch failed: {err}")
             return old
         call_old()
         new = ivf_scan.ivf_scan(qt, xt)
         torch.cuda.synchronize()
-        if not same_bits(new, old):
-            bad = int((new.view(torch.int32) != old.view(torch.int32)).sum())
-            raise Failure(f"ivf_scan ({nq}x{d})x({n}x{d}): {bad} elements "
-                          f"differ from the earlier kernel's")
+        bad = int((new.view(torch.int32) != old.view(torch.int32)).sum())
+        path = ivf_scan.launch_path(nq, n, d)
+        cs.check(bad == 0, f"ivf_scan ({nq}x{d})x({n}x{d}), {path} path: "
+                 f"{bad} elements differ from the earlier kernel's")
         if (nq, n, d) not in IVF_SHAPES:   # held bitwise, not timed
             res[f"{nq}x{n}x{d}"] = None
-            log(f"ivf_scan ({nq}x{d})x({n}x{d}): bitwise equal to the "
-                f"earlier kernel")
+            log(f"ivf_scan ({nq}x{d})x({n}x{d}), {path} path: bitwise equal "
+                f"to the earlier kernel")
             continue
-        t_old = sum(kernel_times(call_old).values())
-        t_new = sum(kernel_times(lambda: ivf_scan.ivf_scan(qt, xt)).values())
+        t_old = cs.kernel_ms(call_old, None)
+        t_new = cs.kernel_ms(lambda: ivf_scan.ivf_scan(qt, xt), None)
         res[f"{nq}x{n}x{d}"] = (t_old, t_new)
-        log(f"ivf_scan ({nq}x{d})x({n}x{d}): bitwise equal to the earlier "
-            f"kernel; device time earlier {t_old:.4f} ms, this tree "
-            f"{t_new:.4f} ms")
-    return res
-
-
-def ivf_variants(seed: int, work: Path) -> dict:
-    """This tree's ivf_scan built with other wide tiles, each timed by
-    device time at the wide path shapes against the tree's own."""
-    import numpy as np
-    import torch
-    from repro_torch.kernels import build as kb
-    from repro_torch.kernels import ivf_scan
-    builds = {v: build(kb.CSRC, "ivf_scan", cu, [], work / f"ivf_{i}")
-              for i, (v, cu) in enumerate(IVF_VARIANTS.items())}
-    fns = {"as is": None}
-    for v, (lib_path, proc) in builds.items():
-        text, _ = proc.communicate()
-        if proc.returncode != 0:
-            raise Failure(f"nvcc failed for variant {v}:\n{text}")
-        lib = ctypes.CDLL(str(lib_path))
-        fn = lib.ivf_scan_launch
-        fn.argtypes = kb.SIGNATURES["ivf_scan"]["ivf_scan_launch"]
-        fn.restype = _I
-        fns[v] = fn
-    dev = torch.device("cuda")
-    rng = np.random.default_rng(seed)
-    res = {}
-    for nq, n, d in IVF_VARIANT_SHAPES:
-        q = torch.from_numpy(rng.normal(size=(nq, d)).astype(np.float32)).to(dev)
-        x = torch.from_numpy(rng.normal(size=(n, d)).astype(np.float32)).to(dev)
-        base = ivf_scan.ivf_scan(q, x)
-        for v, fn in fns.items():
-            if fn is None:
-                call = (lambda: ivf_scan.ivf_scan(q, x))
-            else:
-                out = torch.empty((nq, n), dtype=torch.float32, device=dev)
-
-                def call(fn=fn, out=out):
-                    err = fn(q.data_ptr(), x.data_ptr(), out.data_ptr(), nq, n,
-                             d, ivf_scan.PATHS[ivf_scan.launch_path(nq, n, d)],
-                             ivf_scan.SKINNY_SMEM,
-                             torch.cuda.current_stream(dev).cuda_stream)
-                    if err:
-                        raise Failure(f"ivf variant {v} launch failed: {err}")
-                    return out
-            got = call()
-            torch.cuda.synchronize()
-            if not same_bits(got, base):
-                raise Failure(f"ivf variant {v} at {(nq, n, d)} differs")
-            t = sum(kernel_times(call).values())
-            res[f"{v} {nq}x{n}x{d}"] = t
-            log(f"ivf_scan ({nq}x{d})x({n}x{d}) {v}: {t:.4f} ms device time, "
-                f"bitwise equal to this tree's")
+        log(f"ivf_scan ({nq}x{d})x({n}x{d}), {path} path: bitwise equal to "
+            f"the earlier kernel; device time earlier {t_old:.4f} ms, this "
+            f"tree {t_new:.4f} ms")
     return res
 
 
@@ -528,13 +310,10 @@ def main() -> int:
     ap.add_argument("--parent", required=True, type=Path,
                     help="csrc/ directory of the earlier tree")
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--only", choices=("qscan", "ivf", "ivf-variants"),
-                    default=None)
+    ap.add_argument("--only", choices=("qscan", "ivf"), default=None)
     ap.add_argument("--shapes-from", type=Path, default=None,
                     help="a chip_smoke.py log: hold ivf_scan to the earlier "
                          "kernel at every path shape it lists too")
-    ap.add_argument("--quick", action="store_true",
-                    help="the earlier kernel as it is only, no variants")
     args = ap.parse_args()
     import torch
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -544,22 +323,17 @@ def main() -> int:
     from repro_torch.kernels import build as kb
     work = kb.BUILD_DIR / "breakdown"
     shutil.rmtree(work, ignore_errors=True)
-    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                           "--format=csv,noheader"], capture_output=True,
-                          text=True).stdout.strip()
+    card = cs.card_line()
     log(card)
     kb.build_all()
     out = {"card": card}
     try:
         if args.only in (None, "qscan"):
-            out["qscan"] = qscan_breakdown(args.parent, args.seed, work,
-                                           args.quick)
+            out["qscan"] = qscan_breakdown(args.parent, args.seed, work)
         if args.only in (None, "ivf"):
             extra = path_shapes(args.shapes_from) if args.shapes_from else ()
             out["ivf"] = ivf_compare(args.parent, args.seed, work, extra)
-        if args.only in (None, "ivf-variants"):
-            out["ivf variants"] = ivf_variants(args.seed, work)
-    except Failure as e:
+    except cs.SmokeFailure as e:
         print(f"kernel_breakdown.py: FAILED: {e}", file=sys.stderr)
         return 1
     log(json.dumps(out))

@@ -4,7 +4,9 @@
 1. Builds the hand-written CUDA kernels from
    ``src/repro_torch/kernels/csrc`` (one ``nvcc`` per source, in parallel)
    and holds each against its plain PyTorch version at edge shapes (the two
-   ADC kernels, the two merges and the beam search bitwise).
+   ADC kernels, the two merges, the beam search and both bitmap filter
+   entry points bitwise; the list entry point at an empty list, a partial
+   last block, every block of a 2,097,152-point segment and NaN points).
 2. Drives the port's main path: one TRACY tweet store (128-d embeddings,
    IVF / ZORDER / INVERTED / BTREE indexes, flush_rows 2048, fanout 4,
    pq_m 8) filled through ``LSMStore.put``/``flush`` on the card, then the
@@ -12,7 +14,10 @@
    recall_target) and the filter-only t2, t4 through
    ``Executor.execute_many`` in 21 batches of 8 each (the first, which
    uploads the packed column, reported apart).  The kernels' launch counts
-   are zeroed just before and read just after; each must be > 0.
+   are zeroed just before and read just after; each must be > 0, and t2's
+   spatial probes must make one list launch per ``ZOrderIndex.bitmap``
+   call that lists a block (each call counted and checked as it returns)
+   and no per-block launch.
 3. Holds every NN answer against a plain PyTorch brute force on the card
    in float64 (``tie_aware`` at the fp32 rounding bound ``round_bound``:
    each reported d2 within it of its row's exact d2 and of the exact j-th
@@ -34,7 +39,8 @@
 6. The sharded path: a 4-shard ``ShardRouter`` of the same shape holding
    1,048,576 rows, t6, t8, t10, t13, t2, t4 through
    ``ShardedExecutor.execute_many`` (21 batches of 8 each), every answer
-   checked as in 3, one cross-shard merge launch per NN batch.
+   checked as in 3, one cross-shard merge launch per NN batch, no
+   per-block bitmap launch at t2.
 7. The graph path: a GRAPH store of 8,192 rows in 8 segments, g6, g8, g13
    at recall_target 0.95 through ``Executor.execute_many`` (21 batches of
    8 each, planned by the planner alone), each answer held against the
@@ -42,11 +48,14 @@
    visited words' popcount; recall@10 against the exact dispatch and a
    widened beam against it bitwise, printed.
 8. Holds each kernel against its plain version on the inputs the paths
-   gave it (ivf_scan at every path shape), times both and one PyTorch
-   library call where one computes the same function (the quantized scan,
+   gave it (ivf_scan and both bitmap filter entry points at every path
+   shape), times both and one PyTorch library call where one computes the
+   same function (every kernel by its device time in a profiler trace,
+   beside its CUDA-event time: the fused scan at t6, the quantized scan,
    ivf_scan at its three most-launched and two most frequent single-query
-   shapes, pq_adc and its library call, and the merges by their device
-   time in a profiler trace, beside their CUDA-event time), traces one
+   shapes, the bitmap filter's list launch at t2 and its per-block launch
+   at (1024 x 2), pq_adc and its library call, the merges, the beam
+   search; and one spatial probe op at t2 by its parts), traces one
    more t6, g6 and t2 batch and one sharded t6 batch for the device's busy
    share, and prints one JSON line ``{"kernels": [...]}``; the last line
    is
@@ -112,6 +121,14 @@ SOURCES = {
 # the quantized scan's four launches a call (csrc/quantized_scan.cu)
 QSCAN_KERNELS = ("qscan_witness", "qscan_threshold", "qscan_scan",
                  "qscan_select")
+# the fused scan's two (csrc/fused_scan.cu, its merge from topk_list.cuh)
+FUSED_KERNELS = ("fused_scan_pass1", "topk_merge_chunks")
+# host time a profiler trace is held open before the first call and after
+# the last launch has finished (``trace_spans``)
+TRACE_PAD_S = 0.05
+# bitmap_filter's list entry point: its launches also count in
+# bitmap_filter's, so its per-block launches are the difference
+ENTRY = "bitmap_filter_blocks"
 
 
 class SmokeFailure(RuntimeError):
@@ -143,12 +160,20 @@ def kernel_counts():
 
 
 def counts():
-    return {n: c.value for n, c in kernel_counts().items()}
+    """Each kernel's launch count, and (``ENTRY``) the launches of
+    bitmap_filter's list entry point alone, which also count in
+    ``bitmap_filter``: its per-block launches are the difference."""
+    from repro_torch.kernels import bitmap_filter
+    c = {n: c.value for n, c in kernel_counts().items()}
+    c[ENTRY] = bitmap_filter.blocks_launches.value
+    return c
 
 
 def reset_counts() -> None:
+    from repro_torch.kernels import bitmap_filter
     for c in kernel_counts().values():
         c.reset()
+    bitmap_filter.blocks_launches.reset()
 
 
 def add_counts(total: dict) -> dict:
@@ -156,8 +181,25 @@ def add_counts(total: dict) -> dict:
     them."""
     c = counts()
     for k, v in c.items():
-        total[k] += v
+        total[k] = total.get(k, 0) + v
     return c
+
+
+def bitmap_entries(c: dict) -> str:
+    """bitmap_filter's launches in ``c`` by entry point."""
+    return (f"bitmap_filter per block {c['bitmap_filter'] - c[ENTRY]}, "
+            f"list {c[ENTRY]}")
+
+
+def check_list_launches(what: str, delta: dict, probes: int) -> None:
+    """The launch counts ``delta`` of a template's batches hold exactly one
+    launch of bitmap_filter's list entry point for each of the ``probes``
+    ``ZOrderIndex.bitmap`` calls that listed a block, and no per-block
+    launch."""
+    check(probes > 0 and delta[ENTRY] == probes
+          and delta["bitmap_filter"] == delta[ENTRY],
+          f"{what}: {probes} Z-order probes listed a block, launches "
+          f"{bitmap_entries(delta)}")
 
 
 def same_bits(a, b) -> bool:
@@ -200,26 +242,38 @@ def kernel_ms(fn, kernel, reps: int = 20, warm: int = 3) -> float:
     made of.  Fails if no trace of three holds one launch of each named
     kernel a call (a trace can miss a few kernel records)."""
     import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
     for _ in range(warm):
         fn()
     torch.cuda.synchronize()
     for attempt in range(3):
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
-                fn()
-            torch.cuda.synchronize()
-        spans = [(e.name, e.time_range.end - e.time_range.start)
-                 for e in prof.events()
-                 if getattr(e, "device_type", None) == DeviceType.CUDA]
         try:
-            return span_ms(spans, kernel, reps)
+            return span_ms(trace_spans(fn, reps), kernel, reps)
         except SmokeFailure as e:
             if attempt == 2:
                 raise
             log(f"kernel_ms: {e}; tracing again")
+
+
+def trace_spans(fn, reps: int):
+    """(name, microseconds) of every device event in a ``torch.profiler``
+    trace of ``reps`` calls of ``fn``.  The trace's window opens
+    ``TRACE_PAD_S`` before the first call and closes as long after the
+    last launch has finished: the profiler drops a device event whose
+    time, converted to the host's clock, falls outside the window, and
+    traces that end at the last launch have lost all or part of it."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        time.sleep(TRACE_PAD_S)
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        time.sleep(TRACE_PAD_S)
+    return [(e.name, e.time_range.end - e.time_range.start)
+            for e in prof.events()
+            if getattr(e, "device_type", None) == DeviceType.CUDA]
 
 
 def span_ms(spans, kernel, reps: int) -> float:
@@ -447,6 +501,49 @@ def hold_plain(kind, key, x, y, out) -> float:
     return 0.0
 
 
+def hold_list(key, a, out) -> float:
+    """Hold one call of bitmap_filter's list entry point against its
+    plain version on the same inputs, bitwise; returns 0.0."""
+    from repro_torch.kernels import ref
+    bad = int((out.bool() != ref.bitmap_filter_blocks_ref(*a)).sum())
+    check(bad == 0, f"bitmap_filter_blocks input {key}: {bad} mask rows "
+          f"differ from the plain version")
+    return 0.0
+
+
+def list_case(rng, n: int, kind: str, dev):
+    """A random input of bitmap_filter's list entry point: n points in
+    [0, 100]^2 in 128-point blocks, a row-id permutation, a rectangle
+    whose corners are two points' own values, and a block list:
+    ``empty``; ``partial`` (blocks 0, 2, ... and the partial last one);
+    ``every`` block; ``nan`` (every block, every 7th point NaN in x and
+    every 14th in y); ``repeat`` (repeated ids, and -1 and nb, which the
+    kernel skips).  Returns the wrapper's arguments."""
+    import torch
+    from repro_torch.core.types import BLOCK_ROWS
+    pts = rng.uniform(0, 100, (n, 2)).astype(np.float32)
+    lo = np.minimum(pts[0], pts[n // 3])
+    hi = np.maximum(pts[0], pts[n // 3])
+    bounds = np.stack([[lo[0], hi[0]], [lo[1], hi[1]]]).astype(np.float32)
+    if kind == "nan":
+        pts[::7, 0] = np.nan
+        pts[3::14, 1] = np.nan
+    nb = -(-n // BLOCK_ROWS)
+    blocks = {"empty": [], "partial": list(range(0, nb - 1, 2)) + [nb - 1],
+              "every": range(nb), "nan": range(nb),
+              "repeat": [nb - 1, 0, nb - 1, -1, nb, 1, 1]}[kind]
+    return (torch.from_numpy(pts).to(dev),
+            torch.from_numpy(rng.permutation(n).astype(np.int32)).to(dev),
+            torch.as_tensor(np.asarray(blocks, np.int32), device=dev),
+            torch.from_numpy(bounds).to(dev), n, BLOCK_ROWS)
+
+
+# list entry point edge cases (points, block list): a partial last block
+# (1,000 = 7 x 128 + 104), every block of a 2,097,152-point segment
+LIST_EDGE = [(1000, "empty"), (1000, "partial"), (2_097_152, "every"),
+             (5000, "nan"), (4099, "repeat")]
+
+
 def edge_checks(dev, errs) -> None:
     import torch
     from repro_torch.kernels import bitmap_filter, fused_scan, ivf_scan, ref
@@ -496,6 +593,18 @@ def edge_checks(dev, errs) -> None:
         check(bad == 0, f"bitmap_filter: {bad} rows differ")
         log(f"edge bitmap_filter n={n} c={c}: 0 rows differ, "
             f"{int(want.sum())} pass")
+    for n, kind in LIST_EDGE:
+        a = list_case(rng, n, kind, dev)
+        before = bitmap_filter.blocks_launches.value
+        out = bitmap_filter.bitmap_filter_blocks(*a)
+        torch.cuda.synchronize()
+        hold_list((n, kind), a, out)
+        launched = bitmap_filter.blocks_launches.value - before
+        check(launched == (kind != "empty"), f"bitmap_filter_blocks "
+              f"{kind}: {launched} launches")
+        log(f"edge bitmap_filter_blocks n={n} blocks={kind} "
+            f"({a[2].numel()} listed, {launched} launch): bitwise equal to "
+            f"the plain version, {int(out.sum())} rows set")
 
 
 def adc_case(rng, nq, n, m, kind):
@@ -949,7 +1058,7 @@ def main_path(dev, record):
           2: torch.from_numpy(data.cols["coordinate"]).to(dev, torch.float64)}
     swaps_total = 0
     for name in ("t6", "t8", "t10", "t13", "t2", "t4"):
-        before = counts()
+        before, probes = counts(), record.get("probes", 0)
         times, plan_desc, swaps, checked, power = [], "", 0, 0, []
         for _ in range(BATCHES):
             made = [tmpl[name]() for _ in range(8)]
@@ -978,6 +1087,10 @@ def main_path(dev, record):
                     power.append(pw)
         after = counts()
         delta = {n: after[n] - before[n] for n in after}
+        hold_pending(record)
+        if name == "t2":
+            check_list_launches("t2", delta,
+                                record.get("probes", 0) - probes)
         swaps_total += swaps
         rest = np.asarray(times[1:])
         tol_note = (f", tol / k-th d2 median {np.median(power):.3g} max "
@@ -1032,7 +1145,7 @@ def quantized_path(dev, record, ctx) -> dict:
     n = len(xs[128])
     gt = quantized_templates(ctx["tmpl"])
     ctx["gt"] = gt
-    total = dict.fromkeys(SOURCES, 0)
+    total = dict.fromkeys(counts(), 0)
 
     def quantized_run(qs, plans=None):
         """One quantized ``execute_many``, its launches counted from 0 just
@@ -1194,7 +1307,7 @@ def sharded_path(dev, record):
         f"rows (paper: {PAPER_ROWS}; cut for the run's time), dim={dim} "
         f"flush_rows=2048 fanout=4 pq_m=8 per shard")
     data = TracyData(dim, seed=2)
-    total = dict.fromkeys(SOURCES, 0)
+    total = dict.fromkeys(counts(), 0)
     reset_counts()
     router, ingest_s = tracy_store(dev, data, rows, "IVF", shards=N_SHARDS)
     ingest = add_counts(total)
@@ -1208,7 +1321,7 @@ def sharded_path(dev, record):
           2: torch.from_numpy(data.cols["coordinate"]).to(dev, torch.float64)}
     nn_batches = 0
     for name in ("t6", "t8", "t10", "t13", "t2", "t4"):
-        before = dict(total)
+        before, probes = dict(total), record.get("probes", 0)
         times, swaps, checked, head = [], 0, 0, ""
         for _ in range(BATCHES):
             made = [tmpl[name]() for _ in range(8)]
@@ -1242,6 +1355,10 @@ def sharded_path(dev, record):
                       f"sharded {name}: merge_rows {st.merge_rows}")
                 swaps += brute_nn(dev, xs, mask, spec[1], qq.k, res)[0]
         delta = {k: v - before[k] for k, v in total.items()}
+        hold_pending(record)
+        if name == "t2":
+            check_list_launches("sharded t2", delta,
+                                record.get("probes", 0) - probes)
         rest = np.asarray(times[1:])
         log(f"sharded query {name}: {head.split(' ')[0]} "
             f"first_batch_ms={times[0]:.3f} p50_batch_ms="
@@ -1279,7 +1396,7 @@ def graph_path(dev, record):
         f"study, bounded by the host graph build), dim={dim} flush_rows="
         f"{GRAPH_FLUSH} fanout=32, no PQ tier")
     data = TracyData(dim, seed=3)
-    total = dict.fromkeys(SOURCES, 0)
+    total = dict.fromkeys(counts(), 0)
     reset_counts()
     store, ingest_s = tracy_store(dev, data, rows, "GRAPH",
                                   flush_rows=GRAPH_FLUSH, fanout=32,
@@ -1377,24 +1494,29 @@ def graph_path(dev, record):
 
 def install_recorder(record):
     """Keep the inputs the paths hand each kernel wrapper (one set per
-    template for the two scans, the last fused call apart, one per shape
-    for ivf_scan, bitmap_filter and pq_adc up to the 64 or 80 that are
-    timed, every call of the merge and the beam search, the beam search's
-    outputs too).  The first call of each ivf_scan, bitmap_filter and
-    pq_adc shape is held against the plain version on its own inputs as
-    it runs (``hold_plain``).  A ``template`` of None records no scan
+    template for the two scans and bitmap_filter's list entry point, the
+    last fused call apart, one per shape for ivf_scan, bitmap_filter's
+    per-block entry point and pq_adc up to the 64 or 80 that are timed,
+    every call of the merge and the beam search, the beam search's
+    outputs too).  The first call of each shape of ivf_scan, pq_adc and
+    bitmap_filter's per-block entry point is held against the plain
+    version on its own inputs as it runs (``hold_plain``); that of each
+    shape of the list entry point, whose shapes differ from call to call,
+    is kept with its output and held by ``hold_pending`` after the timed
+    batches (``hold_list``).  A ``template`` of None records no scan
     inputs."""
     from repro_torch.kernels import (bitmap_filter, fused_scan, graph_search,
                                      ivf_scan, pq_adc, quantized_scan,
                                      topk_merge)
     orig = {"fused": fused_scan.fused_scan_topk, "ivf": ivf_scan.ivf_scan,
             "bitmap": bitmap_filter.bitmap_filter,
+            "blocks": bitmap_filter.bitmap_filter_blocks,
             "quantized": quantized_scan.quantized_scan_topk,
             "pq": pq_adc.pq_adc, "merge": topk_merge.batched_topk_merge,
             "graph": graph_search.graph_search_topk,
             "topk": topk_merge.topk_merge}
     record.update(fused={}, quantized={}, ivf={}, bitmap={}, pq={},
-                  merge=[], graph=[])
+                  blocks={}, merge=[], graph=[])
 
     def per_template(kind):
         def rec(*a):
@@ -1424,6 +1546,25 @@ def install_recorder(record):
             return out
         return rec
 
+    list_calls = record["blocks_calls"] = {}
+    record["blocks_err"] = {}
+    pending = record["blocks_pending"] = {}
+
+    def blocks(cols, rows, blk, bounds, n_out, block_rows):
+        # every shape (points, columns, listed blocks, mask rows) kept with
+        # its output at its first call, to hold later; each template's last
+        # call kept for timing (the points and row ids are the index's own
+        # device copies, which no call writes)
+        key = (cols.shape[0], cols.shape[1], blk.numel(), n_out)
+        list_calls[key] = list_calls.get(key, 0) + 1
+        a = (cols, rows, blk.clone(), bounds.clone(), n_out, block_rows)
+        if record.get("template") is not None:
+            record["blocks"][record["template"]] = a
+        out = orig["blocks"](cols, rows, blk, bounds, n_out, block_rows)
+        if key not in record["blocks_err"] and key not in pending:
+            pending[key] = (a, out.clone())
+        return out
+
     def merge(d, i, k):
         record["merge"].append((d.clone(), i.clone(), k))
         return orig["merge"](d, i, k)
@@ -1439,8 +1580,40 @@ def install_recorder(record):
     quantized_scan.quantized_scan_topk = per_template("quantized")
     ivf_scan.ivf_scan = per_shape("ivf")
     bitmap_filter.bitmap_filter = per_shape("bitmap")
+    bitmap_filter.bitmap_filter_blocks = blocks
     pq_adc.pq_adc = per_shape("pq")
     return orig
+
+
+def hold_pending(record) -> None:
+    """Hold the list calls the recorder kept (the first of each shape)
+    against the plain version, outside the timed batches."""
+    pending = record.get("blocks_pending", {})
+    for key, (a, out) in pending.items():
+        record["blocks_err"][key] = hold_list(key, a, out)
+    pending.clear()
+
+
+def install_probe_counter(record):
+    """Count in ``record["probes"]`` the ``ZOrderIndex.bitmap`` calls
+    that list a block, and fail on a call that does not make exactly one
+    launch of bitmap_filter's list entry point (none if it lists no
+    block) or that makes a per-block launch."""
+    from repro_torch.core.index import spatial
+    orig = spatial.ZOrderIndex.bitmap
+    record["probes"] = 0
+
+    def bitmap(self, segment, predicate):
+        before = counts()
+        out = orig(self, segment, predicate)
+        d = {k: v - before[k] for k, v in counts().items()}
+        listed = self.last_blocks_read > 0
+        record["probes"] += listed
+        check(d[ENTRY] == int(listed) and d["bitmap_filter"] == d[ENTRY],
+              f"a ZOrderIndex.bitmap call listing {self.last_blocks_read} "
+              f"blocks made launches {bitmap_entries(d)}")
+        return out
+    spatial.ZOrderIndex.bitmap = bitmap
 
 
 def measure(record, orig, launches, errs, dev):
@@ -1480,20 +1653,26 @@ def measure(record, orig, launches, errs, dev):
             f"{bound:.4f} ms ({by})")
     if fs_rows:
         main = "t6" if "t6" in fs_rows else next(iter(fs_rows))
-        k_ms, p_ms, bound, by, l_ms = fs_rows[main]
-        out.append(("fused_scan_topk", k_ms, p_ms, bound, by, l_ms))
+        e_ms, p_ms, bound, by, l_ms = fs_rows[main]
+        a = record["fused"][main]
+        k_ms = kernel_ms(lambda: orig["fused"](*a), FUSED_KERNELS)
+        log(f"kernel fused_scan_topk {main}: {k_ms:.4f} ms device time "
+            f"({' + '.join(FUSED_KERNELS)}), {e_ms:.4f} ms a call by CUDA "
+            f"events")
+        out.append(("fused_scan_topk", k_ms, p_ms, bound, by, l_ms,
+                    {"events_ms": e_ms}))
     if record["quantized"]:
         out.append(measure_quantized(record, orig))
+    if record["blocks"]:
+        out.append(measure_bitmap(record, orig, launches, errs))
 
-    for kind, name in (("ivf", "ivf_scan"), ("bitmap", "bitmap_filter"),
-                       ("pq", "pq_adc")):
+    for kind, name in (("ivf", "ivf_scan"), ("pq", "pq_adc")):
         if not record[kind]:
             continue
         best = None
         # the paths' most frequent shapes, timed: ivf_scan's three and its
         # two most frequent single-query ones, by device time and CUDA
-        # events; pq_adc's one by device time (and its library call too);
-        # bitmap_filter's one by CUDA events
+        # events; pq_adc's one by device time (and its library call too)
         calls_of = record[kind + "_calls"]
         ranked = sorted(record[kind].items(), key=lambda kv: -calls_of[kv[0]])
         timed = {k for k, _ in ranked[:3 if kind == "ivf" else 1]}
@@ -1523,7 +1702,7 @@ def measure(record, orig, launches, errs, dev):
                 lib = (lambda x=x, y=y: torch.cdist(x, y).square())
                 plain = (lambda x=x, y=y: ref.ivf_scan_ref(x, y))
                 path = ivf_scan.launch_path(nq, n, d)
-            elif kind == "pq":
+            else:
                 n, m = x.shape
                 nbytes, flops = n * m + 4 * y.numel() + 4 * n, n * m
                 # the library yardstick: one gather of the LUT, summed
@@ -1531,21 +1710,13 @@ def measure(record, orig, launches, errs, dev):
                        torch.gather(y, 1, x.T.long()).sum(dim=0))
                 plain = (lambda x=x, y=y: ref.pq_adc_ref(x, y))
                 path = None
-            else:
-                n, c = x.shape
-                nbytes, flops = 4 * n * c + n + 8 * c, 2 * n * c
-                lib = None
-                plain = (lambda x=x, y=y: ref.bitmap_filter_ref(x, y))
-                path = None
             e_ms = cuda_ms(lambda x=x, y=y: orig[kind](x, y))
-            k_ms = e_ms if kind == "bitmap" else kernel_ms(
-                lambda x=x, y=y: orig[kind](x, y), name)
+            k_ms = kernel_ms(lambda x=x, y=y: orig[kind](x, y), name)
             bound, by = row_bound(nbytes, flops)
             log(f"kernel {name} {key} ({calls} path launches at this shape"
                 f"{', ' + path + ' path' if path else ''}): kernel "
-                f"{k_ms:.4f} ms{' device time' if kind != 'bitmap' else ''}"
-                f" ({e_ms:.4f} ms a call by CUDA events), bound "
-                f"{bound:.5f} ms ({by})")
+                f"{k_ms:.4f} ms device time ({e_ms:.4f} ms a call by CUDA "
+                f"events), bound {bound:.5f} ms ({by})")
             if best is None:          # the main path's most frequent shape
                 p_ms = cuda_ms(plain)
                 if lib is None:
@@ -1569,14 +1740,126 @@ def measure(record, orig, launches, errs, dev):
         out.append(measure_graph(record, orig))
     out.append(measure_topk(orig, dev))
     line = []
-    for name, k_ms, p_ms, bound, by, l_ms in out:
+    for name, k_ms, p_ms, bound, by, l_ms, *extra in out:
         src, rep = SOURCES[name]
         line.append({"name": name, "route": "cuda", "source": src,
                      "replaces": rep, "launches": launches[name],
                      "max_abs_err": errs[name], "ms": k_ms,
                      "plain_ms": p_ms, "bound_ms": bound, "bound_by": by,
-                     "library_ms": l_ms})
+                     "library_ms": l_ms, **(extra[0] if extra else {})})
     return line
+
+
+def zero_kernel(fn, kernel: str) -> str:
+    """The name of the one device kernel besides ``kernel`` (and copies)
+    that a call of ``fn`` runs: the fill that zeroes the wrapper's output
+    before the launch.  Fails unless a trace of three shows one such
+    name."""
+    for _ in range(3):
+        names = {n for n, _ in trace_spans(fn, 5)
+                 if kernel not in n and not n.startswith("Memcpy")}
+        if len(names) == 1:
+            break
+    name = next(iter(names), "")
+    check(len(names) == 1 and ("Fill" in name or "Memset" in name),
+          f"a call runs {sorted(names)} beside {kernel}, not one fill")
+    return name
+
+
+def measure_bitmap(record, orig, launches, errs):
+    """bitmap_filter's row.  Its list entry point at the main path's t2
+    input (the last t2 query's block list on the 2,097,152-row segment):
+    device time of the mask's zeroing and the kernel, the two launches a
+    call makes, in a profiler trace, and of the call by CUDA events; its
+    plain version; its bound (the listed points' values and row ids, the
+    list and the bounds read once, the n_out-byte mask written once).
+    Beside it the kernel alone, against its own bound (what it reads, and
+    one byte for each row it sets).  Then what one ``ops.rect_filter_blocks``
+    call at that input spends (host clock, and the trace's memset, kernel
+    and copies).  The per-block entry point at (1024 x 2), on the first
+    1,024 of the same points, by device time.  Every path call of either
+    entry point was held by the recorder (the list calls here, by
+    ``hold_pending``)."""
+    import torch
+    from repro_torch.kernels import ops, ref
+    hold_pending(record)
+    for kind, name in (("blocks", "list"), ("bitmap", "per-block")):
+        check(set(record[kind + "_err"]) == set(record[kind + "_calls"]),
+              f"bitmap_filter {name}: a path shape was not held against "
+              f"the plain version")
+    tname = "t2" if "t2" in record["blocks"] else next(iter(record["blocks"]))
+    a = record["blocks"][tname]
+    cols, rows, blocks, bounds, n_out, br = a
+    n, c = cols.shape
+    b = blocks.long()
+    b = b[(b >= 0) & (b * br < n)]
+    listed = int(torch.clamp(n - b * br, max=br).sum())
+    kname = "bitmap_filter_blocks_kernel"
+
+    def call():
+        return orig["blocks"](*a)
+    hits = int(call().sum())
+    fill = zero_kernel(call, kname)
+    e_ms = cuda_ms(call)
+    k_ms = kernel_ms(call, (fill, kname))
+    ko_ms = kernel_ms(call, kname)
+    x, y = cols[:1024].contiguous(), bounds
+    pb_e = cuda_ms(lambda: orig["bitmap"](x, y))
+    pb_ms = kernel_ms(lambda: orig["bitmap"](x, y), "bitmap_filter_kernel")
+    check(bool((orig["bitmap"](x, y).bool()
+                == ref.bitmap_filter_ref(x, y)).all()),
+          "bitmap_filter (1024 x 2) differs from the plain version")
+    pb_bound, _ = row_bound(4 * 1024 * c + 1024 + 8 * c, 2 * 1024 * c)
+    p_ms = cuda_ms(lambda: ref.bitmap_filter_blocks_ref(*a))
+    read = listed * (4 * c + 4) + 4 * blocks.numel() + 8 * c
+    bound, by = row_bound(read + n_out, 2 * c * listed)
+    ko_bound, _ = row_bound(read + hits, 2 * c * listed)
+    log(f"kernel bitmap_filter_blocks {tname} ({n} points, {blocks.numel()} "
+        f"listed blocks, {listed} listed points, {n_out}-row mask, {hits} "
+        f"rows set): zeroing + kernel {k_ms:.4f} ms device time ({e_ms:.4f} "
+        f"ms a call by CUDA events), plain {p_ms:.4f} ms, library none (no "
+        f"one PyTorch call gathers, filters and scatters), bound "
+        f"{bound:.6f} ms ({by}, {read + n_out} bytes); the kernel alone "
+        f"{ko_ms:.4f} ms, bound {ko_bound:.6f} ms ({read + hits} bytes); "
+        f"zeroing kernel {fill}")
+    # one op call at t2's input: host clock, and its device parts
+    hb = bounds.cpu().numpy()
+    rect = (hb[0, 0], hb[1, 0], hb[0, 1], hb[1, 1])
+    bnp = blocks.cpu().numpy()
+
+    def op():
+        return ops.rect_filter_blocks(cols, rows, bnp, rect, n_out, br,
+                                      device=cols.device)
+    op()
+    reps = 20
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        op()
+    op_ms = (time.perf_counter() - t0) * 1e3 / reps
+    spans = trace_spans(op, reps)
+
+    def part(*keys):
+        return sum(t for nm, t in spans if any(k in nm for k in keys)) \
+            / reps / 1e3
+    parts = {"memset": part(fill),
+             "kernel": part("bitmap_filter_blocks_kernel"),
+             "copy_in": part("HtoD"), "copy_out": part("DtoH")}
+    log(f"op rect_filter_blocks {tname}: {op_ms:.4f} ms a call by the host "
+        f"clock; device " + ", ".join(f"{k} {v:.4f}" for k, v in
+                                      parts.items()) + " ms a call")
+    per_block = launches["bitmap_filter"] - launches[ENTRY]
+    log(f"kernel bitmap_filter per block (1024 x {c}): {pb_ms:.4f} ms "
+        f"device time ({pb_e:.4f} ms a call by CUDA events), bound "
+        f"{pb_bound:.7f} ms; launches on the paths: per block {per_block}, "
+        f"list {launches[ENTRY]}")
+    return ("bitmap_filter", k_ms, p_ms, bound, by, None, {
+        "events_ms": e_ms, "kernel_only_ms": ko_ms,
+        "kernel_only_bound_ms": ko_bound,
+        "entry_launches": {"bitmap_filter": per_block,
+                           ENTRY: launches[ENTRY]},
+        "op_ms": op_ms, "op_device_ms": parts,
+        "per_block_ms": pb_ms, "per_block_events_ms": pb_e,
+        "per_block_bound_ms": pb_bound})
 
 
 def measure_merge(record, orig):
@@ -1636,15 +1919,18 @@ def measure_graph(record, orig):
     nbytes = (gathered * (4 * d + 4 + 1) + q.numel() * 4 + ent.numel() * 4
               + nq * beam * 12 + got[3].numel() * 4)
     bound, by = row_bound(nbytes, gathered * 3 * d)
-    k_ms = cuda_ms(lambda: orig["graph"](*a))
+    e_ms = cuda_ms(lambda: orig["graph"](*a))
+    k_ms = kernel_ms(lambda: orig["graph"](*a), "graph_search_kernel")
     p_ms = cuda_ms(lambda: ref.graph_search_topk_ref(*a), reps=3, warm=1)
     log(f"kernel graph_search_topk: {len(record['graph'])} graph-path "
         f"inputs, d2, pks, rows and visited words bitwise equal to the plain "
         f"version and to the path's outputs; at nq={nq} rows={x.shape[0]} "
         f"R={nbr.shape[1]} entries={ent.shape[1]} beam={beam} hops={hops} "
-        f"({gathered} rows gathered): kernel {k_ms:.4f} ms, plain "
-        f"{p_ms:.4f} ms, library none, bound {bound:.6f} ms ({by})")
-    return ("graph_search_topk", k_ms, p_ms, bound, by, None)
+        f"({gathered} rows gathered): kernel {k_ms:.4f} ms device time "
+        f"({e_ms:.4f} ms a call by CUDA events), plain {p_ms:.4f} ms, "
+        f"library none, bound {bound:.6f} ms ({by})")
+    return ("graph_search_topk", k_ms, p_ms, bound, by, None,
+            {"events_ms": e_ms})
 
 
 def measure_topk(orig, dev):
@@ -1839,6 +2125,7 @@ def main() -> int:
             return 0
         record = {}
         orig = install_recorder(record)
+        install_probe_counter(record)
         run = ("main", "sharded", "graph") if args.phase == "all" \
             else (args.phase,)
         paths, ctx = {}, {}
@@ -1862,11 +2149,13 @@ def main() -> int:
                                       "fused_scan_topk"))):
             if path not in paths:
                 continue
-            log(f"{path} path launches: {paths[path]}")
+            log(f"{path} path launches: {paths[path]}; "
+                f"{bitmap_entries(paths[path])}")
             for name in must:
                 check(paths[path][name] > 0,
                       f"{name} never launched on the {path} path")
-        launches = {n: sum(c[n] for c in paths.values()) for n in SOURCES}
+        launches = {n: sum(c.get(n, 0) for c in paths.values())
+                    for n in list(SOURCES) + [ENTRY]}
         line = measure(record, orig, launches, errs, dev)
         if args.phase == "all":
             check(sorted(r["name"] for r in line) == sorted(SOURCES),

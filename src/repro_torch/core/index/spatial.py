@@ -13,9 +13,11 @@ bboxes handled by core.index.global_index.
 from __future__ import annotations
 
 import heapq
+import threading
 from typing import Any, List, Optional, Tuple
 
 import numpy as np
+import torch
 
 from repro_torch.core.index.base import SecondaryIndex, SortedAccess
 from repro_torch.core.types import BLOCK_ROWS
@@ -53,6 +55,12 @@ def _block_bboxes(points: np.ndarray) -> np.ndarray:
     return np.concatenate([mins, maxs], axis=1).astype(np.float32)
 
 
+# query threads share an index's device copy (the sharded fan-out, the
+# background flush worker's compactions beside a query): the check and the
+# upload happen under one lock, as the segment pack cache's do
+_device_lock = threading.Lock()
+
+
 class ZOrderIndex(SecondaryIndex):
     kind = "zorder"
 
@@ -61,9 +69,14 @@ class ZOrderIndex(SecondaryIndex):
         self.points: Optional[np.ndarray] = None    # (n, 2) in z order
         self.block_bbox: Optional[np.ndarray] = None  # (nb, 4)
         self.bbox = (0.0, 0.0, 1.0, 1.0)
+        # (device, points (n, 2) fp32, rows (n,) int32) on the device the
+        # range probe last ran on; dropped wherever ``points`` is set
+        self._on_device: Optional[Tuple[torch.device, torch.Tensor,
+                                        torch.Tensor]] = None
 
     def build(self, segment, column) -> None:
         pts = np.asarray(segment.columns[column.name], np.float32)
+        self._on_device = None
         if len(pts) == 0:
             self.rows = np.zeros((0,), np.int64)
             self.points = pts.reshape(0, 2)
@@ -82,6 +95,7 @@ class ZOrderIndex(SecondaryIndex):
         from the parts' already-materialized z-ordered arrays, re-quantize
         under the union bounding box, and re-sort the codes — the raw
         column is never re-read and the zone maps rebuild via reduceat."""
+        self._on_device = None
         pts_list, rows_list = [], []
         for part, rmap in zip(parts, row_maps):
             if part.rows is None or not len(part.rows):
@@ -112,6 +126,7 @@ class ZOrderIndex(SecondaryIndex):
                 "bbox": np.asarray(self.bbox, np.float64)}
 
     def from_arrays(self, arrays, segment, column) -> None:
+        self._on_device = None
         self.rows = np.asarray(arrays["rows"], np.int64)
         self.points = np.asarray(arrays["points"], np.float32)
         self.block_bbox = np.asarray(arrays["block_bbox"], np.float32)
@@ -127,17 +142,32 @@ class ZOrderIndex(SecondaryIndex):
                 | (bb[:, 3] < ymin) | (bb[:, 1] > ymax))
         return np.nonzero(hit)[0]
 
+    def device_arrays(self, device) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The Z-ordered points (n, 2) fp32 and their segment rows (n,)
+        int32 on ``device``: uploaded at the first range probe there and
+        kept until the index is rebuilt (``build``, ``merge``,
+        ``from_arrays``)."""
+        device = torch.device(device)
+        with _device_lock:
+            held = self._on_device
+            if held is None or held[0] != device:
+                pts = torch.from_numpy(np.ascontiguousarray(
+                    self.points, np.float32)).to(device)
+                rows = torch.from_numpy(np.asarray(
+                    self.rows, np.int32)).to(device)
+                held = self._on_device = (device, pts, rows)
+            return held[1], held[2]
+
     def bitmap(self, segment, predicate) -> np.ndarray:
-        mask = np.zeros(segment.n_rows, bool)
+        """Rows inside ``predicate.rect``: one device launch over every
+        block whose zone map overlaps it."""
         blocks = self._overlapping_blocks(predicate.rect)
         self.last_blocks_read = len(blocks)
-        for b in blocks:
-            sl = slice(b * BLOCK_ROWS, min((b + 1) * BLOCK_ROWS,
-                                           len(self.points)))
-            inside = kops.rect_filter(self.points[sl], predicate.rect,
-                                      device=self.device)
-            mask[self.rows[sl][inside]] = True
-        return mask
+        dev = kops.resolve_device(self.device)
+        pts, rows = self.device_arrays(dev)
+        return kops.rect_filter_blocks(pts, rows, blocks, predicate.rect,
+                                       segment.n_rows, BLOCK_ROWS,
+                                       device=dev)
 
     def selectivity(self, segment, predicate) -> float:
         if segment.n_rows == 0:

@@ -38,7 +38,9 @@ SIGNATURES = {
                    [_P] * 12 + [_I, _I, _L, _I, _I, _I, _P]},
     "ivf_scan": {"ivf_scan_launch": [_P, _P, _P, _I, _I, _I, _I, _L, _P]},
     "bitmap_filter": {"bitmap_filter_launch":
-                      [_P, _P, _P, _L, _I, _I, _P]},
+                      [_P, _P, _P, _L, _I, _I, _P],
+                      "bitmap_filter_blocks_launch":
+                      [_P] * 5 + [_L, _I, _I, _I, _L, _I, _P]},
     "quantized_scan": {"quantized_scan_topk_launch":
                        [_P] * 17 + [_I, _I, _L, _I, _I, _I, _L, _P]},
     "pq_adc": {"pq_adc_launch": [_P, _P, _P, _L, _I, _P]},

@@ -144,11 +144,15 @@ def flush_registry_counters() -> None:
         s.reg_misses = s.shape_misses
 
 
-def _dispatched(out_bytes: int, tag: str = None, shape: Tuple = ()) -> None:
-    """Record one op dispatch; with a ``tag`` also track the shape cache
-    (host-path calls pass no tag — numpy has no shape cache)."""
+def _dispatched(out_bytes: int, tag: str = None, shape: Tuple = (),
+                count: int = 1) -> None:
+    """Record ``count`` op dispatches of ``out_bytes`` in all; with a
+    ``tag`` also track the shape cache (host-path calls pass no tag —
+    numpy has no shape cache)."""
+    if count == 0:
+        return
     s = thread_stats()
-    s.launches += 1
+    s.launches += count
     s.bytes_to_host += int(out_bytes)
     if s.launches - s.reg_launches >= REG_FLUSH_EVERY:
         flush_registry_counters()
@@ -380,13 +384,75 @@ def _bitmap_kernel(cols: np.ndarray, bounds: np.ndarray, dev: torch.device
     return out[:len(cols)].astype(bool)
 
 
+def _rect_bounds(rect) -> np.ndarray:
+    """rect (xmin, ymin, xmax, ymax) -> fp32 bounds (2, 2) [lo, hi]."""
+    r = np.asarray(rect, np.float32)
+    return np.stack([[r[0], r[2]], [r[1], r[3]]])
+
+
 def rect_filter(points: np.ndarray, rect,
                 device: Device = "cuda") -> np.ndarray:
     """points (n, 2); rect (xmin, ymin, xmax, ymax) -> (n,) bool."""
-    r = np.asarray(rect, np.float32)
-    bounds = np.stack([[r[0], r[2]], [r[1], r[3]]])       # (2, 2)
-    return range_bitmap(np.asarray(points, np.float32), bounds,
+    return range_bitmap(np.asarray(points, np.float32), _rect_bounds(rect),
                         device=device)
+
+
+def rect_filter_blocks(points: torch.Tensor, rows: torch.Tensor,
+                       blocks: np.ndarray, rect, n_rows: int,
+                       block_rows: int, device: Device = "cuda"
+                       ) -> np.ndarray:
+    """The spatial index's range probe: points (n, 2) fp32 and rows (n,)
+    int32, a segment's Z-ordered points and each one's segment row, held
+    on ``device``; blocks (nb,) the ``block_rows``-point blocks whose zone
+    maps overlap rect -> host (n_rows,) bool over segment rows, True where
+    a listed point lies inside rect (inclusive; NaN fails).  On the card
+    one kernel launch for the whole list (``bitmap_filter_blocks``), on
+    the CPU its plain version.
+
+    Accounting, the stated exception to one dispatch per device launch:
+    ``ExecStats`` count the reference's dispatches, and the JAX package's
+    ``ZOrderIndex.bitmap`` calls ``rect_filter`` once per listed block.  So
+    this op charges, for each listed block, what ``range_bitmap`` charges
+    for that block on the same device: on the CPU one dispatch of the
+    block's row count in bytes and no shape tag (the host numpy path); on
+    the card one dispatch of BLOCK_N bytes under the ("bitmap.cuda",
+    BLOCK_N, 2) shape key (the Pallas branch's padding).  The card's own
+    launches are counted in ``bitmap_filter.launches``."""
+    dev = resolve_device(device)
+    blocks = np.asarray(blocks, np.int64)
+    if dev.type == "cuda":
+        return _rect_blocks_kernel(points, rows, blocks, rect, n_rows,
+                                   block_rows, dev)
+    mask = _rect_blocks(points, rows, blocks, rect, n_rows, block_rows, dev)
+    n = points.shape[0]
+    block_bytes = np.minimum(n - blocks * block_rows, block_rows)
+    _dispatched(int(block_bytes.sum()), count=len(blocks))
+    return mask
+
+
+def _rect_blocks_kernel(points: torch.Tensor, rows: torch.Tensor,
+                        blocks: np.ndarray, rect, n_rows: int,
+                        block_rows: int, dev: torch.device) -> np.ndarray:
+    """The card's path: one ``bitmap_filter_blocks`` launch (the plain
+    version on a CPU ``dev``), charged as the Pallas branch charges one
+    ``range_bitmap`` call per listed block."""
+    mask = _rect_blocks(points, rows, blocks, rect, n_rows, block_rows, dev)
+    _dispatched(len(blocks) * bf_kernel.BLOCK_N, "bitmap.cuda",
+                (bf_kernel.BLOCK_N, 2), count=len(blocks))
+    return mask
+
+
+def _rect_blocks(points: torch.Tensor, rows: torch.Tensor,
+                 blocks: np.ndarray, rect, n_rows: int, block_rows: int,
+                 dev: torch.device) -> np.ndarray:
+    """Upload the block list and the bounds, run ``bitmap_filter_blocks``
+    and bring the mask back to the host."""
+    if not len(blocks):
+        return np.zeros(n_rows, bool)
+    out = bf_kernel.bitmap_filter_blocks(
+        points, rows, _on(blocks.astype(np.int32), dev), _on(
+            _rect_bounds(rect), dev), n_rows, block_rows)
+    return _host(out).view(bool)
 
 
 # ---------------------------------------------------------------------------

@@ -32,6 +32,28 @@ def bitmap_filter_ref(cols: torch.Tensor, bounds: torch.Tensor
     return ((cols >= lo) & (cols <= hi)).all(dim=1)
 
 
+def bitmap_filter_blocks_ref(cols: torch.Tensor, rows: torch.Tensor,
+                             blocks: torch.Tensor, bounds: torch.Tensor,
+                             n_out: int, block_rows: int) -> torch.Tensor:
+    """``bitmap_filter_ref`` over the listed blocks of ``cols``, scattered
+    through ``rows``: cols (n, c) fp32 and rows (n,) int, a segment's points
+    in index order and each one's segment row; blocks (nb,) int ids of
+    ``block_rows``-point blocks -> (n_out,) bool, True at rows[i] for every
+    point i of a listed block inside every [lo, hi] of bounds (c, 2).
+    Block ids outside [0, ceil(n / block_rows)) and row ids outside
+    [0, n_out) are skipped."""
+    n = cols.shape[0]
+    b = blocks.to(torch.int64)
+    b = b[(b >= 0) & (b * block_rows < n)]
+    idx = (b[:, None] * block_rows
+           + torch.arange(block_rows, device=cols.device)[None, :]).flatten()
+    idx = idx[idx < n]
+    r = rows[idx][bitmap_filter_ref(cols[idx], bounds)].to(torch.int64)
+    out = torch.zeros(n_out, dtype=torch.bool, device=cols.device)
+    out[r[(r >= 0) & (r < n_out)]] = True
+    return out
+
+
 def rect_filter_ref(points: torch.Tensor, rect: torch.Tensor
                     ) -> torch.Tensor:
     """points (n, 2); rect (4,) = (xmin, ymin, xmax, ymax) -> (n,) bool."""

@@ -430,3 +430,215 @@ def test_kernel_ms_traces_again_when_a_trace_misses_launches(monkeypatch):
     assert cs.kernel_ms(lambda: None, "qscan_scan", reps=20) == 0.005
     with pytest.raises(cs.SmokeFailure, match="19 launches"):
         cs.kernel_ms(lambda: None, "qscan_scan", reps=20)
+
+
+@pytest.mark.parametrize("n,kind", [(1000, "empty"), (1000, "partial"),
+                                    (1000, "every"), (5000, "nan"),
+                                    (4099, "repeat")])
+def test_list_edge_cases_are_held_bitwise(n, kind):
+    """The smoke's edge cases of bitmap_filter's list entry point (at the
+    sizes of ``LIST_EDGE``, every block at 1,000 points here) reach what
+    they name, and ``hold_list`` passes the plain version's mask and
+    catches one flipped row."""
+    from repro_torch.kernels import bitmap_filter
+    assert (n, kind) in cs.LIST_EDGE or kind == "every"
+    assert (2_097_152, "every") in cs.LIST_EDGE
+    a = cs.list_case(np.random.default_rng(0), n, kind, "cpu")
+    cols, rows, blocks, bounds, n_out, br = a
+    nb = -(-n // br)
+    listed = set(blocks.tolist())
+    assert {"empty": listed == set(), "partial": nb - 1 in listed and n % br,
+            "every": listed == set(range(nb)),
+            "nan": bool(torch.isnan(cols).any()),
+            "repeat": {-1, nb} <= listed and len(blocks) > len(listed)}[kind]
+    assert sorted(rows.tolist()) == list(range(n))
+    out = bitmap_filter.bitmap_filter_blocks(*a)
+    assert cs.hold_list((n, kind), a, out) == 0.0
+    assert kind == "empty" or out.any()       # the rectangle's corners pass
+    if out.numel():
+        out[0] ^= 1
+        with pytest.raises(cs.SmokeFailure, match="1 mask rows differ"):
+            cs.hold_list((n, kind), a, out)
+
+
+def test_recorder_holds_every_list_call_and_keeps_t2(monkeypatch):
+    """The recorder keeps the first call of every list shape with its
+    output, ``hold_pending`` holds them against the plain version after
+    the timed batches, the last call of each template is kept for timing,
+    and a wrong mask fails at the hold."""
+    from repro_torch.kernels import bitmap_filter
+    monkeypatch.setattr(bitmap_filter, "bitmap_filter_blocks",
+                        bitmap_filter.bitmap_filter_blocks)
+    record = {"template": "t2"}
+    cs.install_recorder(record)
+    rng = np.random.default_rng(3)
+    for n, kind in [(1000, "partial"), (1000, "partial"), (5000, "nan")]:
+        bitmap_filter.bitmap_filter_blocks(*cs.list_case(rng, n, kind, "cpu"))
+    assert sum(record["blocks_calls"].values()) == 3
+    assert record["blocks_err"] == {}               # nothing held yet
+    assert set(record["blocks_pending"]) == set(record["blocks_calls"])
+    cs.hold_pending(record)
+    assert set(record["blocks_err"]) == set(record["blocks_calls"])
+    assert record["blocks_pending"] == {}
+    assert list(record["blocks"]) == ["t2"]
+    assert record["blocks"]["t2"][0].shape == (5000, 2)
+
+    def wrong(*a, orig=bitmap_filter.bitmap_filter_blocks):
+        out = orig(*a)
+        out[0] ^= 1
+        return out
+    monkeypatch.setattr(bitmap_filter, "bitmap_filter_blocks", wrong)
+    cs.install_recorder(record)
+    bitmap_filter.bitmap_filter_blocks(*cs.list_case(rng, 300, "every",
+                                                     "cpu"))
+    with pytest.raises(cs.SmokeFailure, match="differ from the plain"):
+        cs.hold_pending(record)
+
+
+def test_held_list_output_is_the_one_the_call_returned(monkeypatch):
+    """A caller that writes into the returned mask after the call (as a
+    host path may, on a CPU tensor) does not change what is held."""
+    from repro_torch.kernels import bitmap_filter
+    monkeypatch.setattr(bitmap_filter, "bitmap_filter_blocks",
+                        bitmap_filter.bitmap_filter_blocks)
+    record = {"template": None}
+    cs.install_recorder(record)
+    a = cs.list_case(np.random.default_rng(4), 1000, "partial", "cpu")
+    out = bitmap_filter.bitmap_filter_blocks(*a)
+    out ^= 1
+    cs.hold_pending(record)
+    assert list(record["blocks_err"].values()) == [0.0]
+
+
+def _fake_probe(launch_list: int, launch_block: int):
+    """A stand-in for ``ZOrderIndex.bitmap`` that lists the blocks the
+    predicate names and makes the given launches of each entry point."""
+    from repro_torch.kernels import bitmap_filter
+
+    def bitmap(self, segment, predicate):
+        self.last_blocks_read = predicate
+        for _ in range(launch_list):
+            bitmap_filter.launches.add()
+            bitmap_filter.blocks_launches.add()
+        for _ in range(launch_block):
+            bitmap_filter.launches.add()
+        return np.zeros(4, bool)
+    return bitmap
+
+
+@pytest.mark.parametrize("launch_list,launch_block,blocks,ok", [
+    (1, 0, 454, True), (0, 0, 0, True), (2, 0, 454, False),
+    (0, 0, 454, False), (1, 1, 454, False), (1, 0, 0, False),
+    (0, 3, 3, False)])
+def test_probe_counter_wants_one_list_launch_per_listing_probe(
+        monkeypatch, launch_list, launch_block, blocks, ok):
+    """``install_probe_counter`` counts the ``ZOrderIndex.bitmap`` calls
+    that list a block and fails on one that does not make exactly one list
+    launch (none when it lists nothing) or makes a per-block launch."""
+    from repro_torch.core.index import spatial
+    monkeypatch.setattr(spatial.ZOrderIndex, "bitmap",
+                        _fake_probe(launch_list, launch_block))
+    record = {}
+    cs.install_probe_counter(record)
+    cs.reset_counts()
+    idx = spatial.ZOrderIndex()
+    if not ok:
+        with pytest.raises(cs.SmokeFailure, match="ZOrderIndex.bitmap"):
+            idx.bitmap(None, blocks)
+        return
+    for _ in range(3):
+        idx.bitmap(None, blocks)
+    assert record["probes"] == (3 if blocks else 0)
+    if blocks:
+        cs.check_list_launches("t2", cs.counts(), record["probes"])
+
+
+@pytest.mark.parametrize("list_launches,per_block,probes,ok", [
+    (8, 0, 8, True), (192, 0, 192, True), (16, 0, 8, False),
+    (8, 0, 16, False), (8, 1, 8, False), (0, 0, 0, False)])
+def test_t2_check_wants_exactly_one_list_launch_per_probe(
+        list_launches, per_block, probes, ok):
+    """t2's check holds the list launches of a template's batches equal to
+    the Z-order probes that listed a block, with no per-block launch: a
+    probe that launched twice, or once per chunk of blocks, fails it."""
+    delta = {cs.ENTRY: list_launches,
+             "bitmap_filter": list_launches + per_block}
+    if ok:
+        cs.check_list_launches("t2", delta, probes)
+    else:
+        with pytest.raises(cs.SmokeFailure, match="Z-order probes"):
+            cs.check_list_launches("t2", delta, probes)
+
+
+@pytest.mark.parametrize("names,ok", [
+    (["void at::native::vectorized_elementwise_kernel<4, "
+      "at::native::FillFunctor<signed char>>"], True),
+    (["Memset (Device)"], True), ([], False),
+    (["Memset (Device)", "void other_kernel()"], False),
+    (["void other_kernel()"], False)])
+def test_zero_kernel_names_the_fill_beside_the_kernel(monkeypatch, names,
+                                                      ok):
+    """``zero_kernel`` finds the one fill a wrapper call runs beside its
+    kernel (copies aside), and fails on none, on two, or on another
+    kernel."""
+    spans = [("void bitmap_filter_blocks_kernel(float const*)", 2.0),
+             ("Memcpy HtoD (Pageable -> Device)", 1.0)] + [
+        (n, 1.5) for n in names]
+    monkeypatch.setattr(cs, "trace_spans", lambda fn, reps: spans)
+    if ok:
+        assert cs.zero_kernel(None, "bitmap_filter_blocks_kernel") == \
+            names[0]
+    else:
+        with pytest.raises(cs.SmokeFailure, match="not one fill"):
+            cs.zero_kernel(None, "bitmap_filter_blocks_kernel")
+
+
+def test_bitmap_row_reports_both_entry_points(monkeypatch):
+    """``measure_bitmap`` on a recorded list call (timers stubbed: they
+    need the card): the row names both entry points' launches; its ``ms``
+    is the mask's zeroing and the kernel together, held against the bound
+    of the listed points and the whole mask; the kernel alone is held
+    against what it reads and the rows it sets; and the op's parts."""
+    from repro_torch.kernels import bitmap_filter
+    fill = ("void at::native::vectorized_elementwise_kernel<4, "
+            "at::native::FillFunctor<signed char>>")
+    timed = {}
+
+    def kernel_ms(fn, kernel, **kw):
+        timed[kernel] = fn() is not None
+        return 0.5 if isinstance(kernel, tuple) else 0.3
+    monkeypatch.setattr(cs, "cuda_ms", lambda fn, **kw: fn() is None)
+    monkeypatch.setattr(cs, "kernel_ms", kernel_ms)
+    monkeypatch.setattr(cs, "trace_spans", lambda fn, reps: [
+        ("void bitmap_filter_blocks_kernel(float const*)", 4.0 * reps),
+        (fill, 1.0 * reps),
+        ("Memcpy DtoH (Device -> Pageable)", 100.0 * reps)])
+    a = cs.list_case(np.random.default_rng(5), 1000, "partial", "cpu")
+    record = {"blocks": {"t2": a},
+              "blocks_calls": {(1000, 2, 5, 1000): 1},
+              "blocks_err": {(1000, 2, 5, 1000): 0.0},
+              "bitmap_calls": {}, "bitmap_err": {}}
+    orig = {"blocks": bitmap_filter.bitmap_filter_blocks,
+            "bitmap": bitmap_filter.bitmap_filter}
+    launches = {"bitmap_filter": 11, cs.ENTRY: 8}
+    name, k_ms, p_ms, bound, by, lib, extra = cs.measure_bitmap(
+        record, orig, launches, {})
+    assert (name, k_ms, lib, by) == ("bitmap_filter", 0.5, None, "bytes")
+    listed = 4 * 128 + 1000 - 7 * 128           # blocks 0, 2, 4, 6 and 7
+    nbytes = listed * 12 + 4 * 5 + 16 + 1000
+    assert bound == pytest.approx(nbytes / cs.HBM_BYTES_PER_S * 1e3)
+    assert extra["entry_launches"] == {"bitmap_filter": 3, cs.ENTRY: 8}
+    assert timed == {(fill, "bitmap_filter_blocks_kernel"): True,
+                     "bitmap_filter_blocks_kernel": True,
+                     "bitmap_filter_kernel": True}
+    hits = int(bitmap_filter.bitmap_filter_blocks(*a).sum())
+    assert extra["kernel_only_ms"] == 0.3
+    assert extra["kernel_only_bound_ms"] == pytest.approx(
+        (nbytes - 1000 + hits) / cs.HBM_BYTES_PER_S * 1e3)
+    assert extra["op_device_ms"]["kernel"] == pytest.approx(0.004)
+    assert extra["op_device_ms"]["memset"] == pytest.approx(0.001)
+    assert extra["op_device_ms"]["copy_out"] == pytest.approx(0.1)
+    assert extra["per_block_ms"] == 0.3
+    record["blocks_calls"][(1, 2, 1, 1)] = 1       # a shape never held
+    with pytest.raises(cs.SmokeFailure, match="not held"):
+        cs.measure_bitmap(record, orig, launches, {})

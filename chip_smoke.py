@@ -6,7 +6,10 @@
    and holds each against its plain PyTorch version at edge shapes (the two
    ADC kernels, the two merges, the beam search and both bitmap filter
    entry points bitwise; the list entry point at an empty list, a partial
-   last block, every block of a 2,097,152-point segment and NaN points).
+   last block, every block of a 2,097,152-point segment and NaN points;
+   the fused scan at ``FUSED_EDGE``: d up to MAX_DIM, a re-rank's 40 rows a
+   query over 262,144 rows, a query under 128 admitted rows, NaN and +inf
+   d2 rows, ties at its threshold, a mask its witnesses never sample).
 2. Drives the port's main path: one TRACY tweet store (128-d embeddings,
    IVF / ZORDER / INVERTED / BTREE indexes, flush_rows 2048, fanout 4,
    pq_m 8) filled through ``LSMStore.put``/``flush`` on the card, then the
@@ -51,7 +54,8 @@
    gave it (ivf_scan and both bitmap filter entry points at every path
    shape), times both and one PyTorch library call where one computes the
    same function (every kernel by its device time in a profiler trace,
-   beside its CUDA-event time: the fused scan at t6, the quantized scan,
+   beside its CUDA-event time: the fused scan at t6 (every launch of a
+   call apart and summed, from one trace), the quantized scan,
    ivf_scan at its three most-launched and two most frequent single-query
    shapes, the bitmap filter's list launch at t2 and its per-block launch
    at (1024 x 2), pq_adc and its library call, the merges, the beam
@@ -118,11 +122,13 @@ SOURCES = {
 }
 
 
-# the quantized scan's four launches a call (csrc/quantized_scan.cu)
-QSCAN_KERNELS = ("qscan_witness", "qscan_threshold", "qscan_scan",
-                 "qscan_select")
-# the fused scan's two (csrc/fused_scan.cu, its merge from topk_list.cuh)
-FUSED_KERNELS = ("fused_scan_pass1", "topk_merge_chunks")
+# the quantized scan's four launches a call (csrc/quantized_scan.cu, the
+# threshold and the select from csrc/scan_select.cuh)
+QSCAN_KERNELS = ("qscan_witness", "topk_threshold", "qscan_scan",
+                 "topk_select")
+# the fused scan's four (csrc/fused_scan.cu, the same two shared ones)
+FUSED_KERNELS = ("fscan_witness", "topk_threshold", "fscan_scan",
+                 "topk_select")
 # host time a profiler trace is held open before the first call and after
 # the last launch has finished (``trace_spans``)
 TRACE_PAD_S = 0.05
@@ -241,17 +247,34 @@ def kernel_ms(fn, kernel, reps: int = 20, warm: int = 3) -> float:
     launch cost that a few-microsecond kernel's CUDA-event time is mostly
     made of.  Fails if no trace of three holds one launch of each named
     kernel a call (a trace can miss a few kernel records)."""
+    return traced(fn, lambda spans: span_ms(spans, kernel, reps), reps, warm)
+
+
+def kernel_parts(fn, names=None, reps: int = 20, warm: int = 3) -> dict:
+    """Mean device milliseconds per call of ``fn`` of each kernel in
+    ``names`` (by default ``FUSED_KERNELS``), all from one trace
+    (``span_parts``): the launches of one call apart, and in sum what the
+    call costs the card.  Traces up to three times, as ``kernel_ms``."""
+    names = FUSED_KERNELS if names is None else names
+    return traced(fn, lambda spans: span_parts(spans, names, reps), reps,
+                  warm)
+
+
+def traced(fn, measure, reps: int, warm: int):
+    """``measure`` of the device spans of ``reps`` calls of ``fn``, after
+    ``warm`` calls, from the first of up to three traces it does not fail
+    on."""
     import torch
     for _ in range(warm):
         fn()
     torch.cuda.synchronize()
     for attempt in range(3):
         try:
-            return span_ms(trace_spans(fn, reps), kernel, reps)
+            return measure(trace_spans(fn, reps))
         except SmokeFailure as e:
             if attempt == 2:
                 raise
-            log(f"kernel_ms: {e}; tracing again")
+            log(f"trace: {e}; tracing again")
 
 
 def trace_spans(fn, reps: int):
@@ -293,6 +316,23 @@ def span_ms(spans, kernel, reps: int) -> float:
               f"{name}, not {reps}")
         total += sum(us)
     return total / reps / 1e3
+
+
+def span_parts(spans, names, reps: int) -> dict:
+    """Mean milliseconds per call of each of ``names`` over the (name,
+    microseconds) device spans of ``reps`` calls.  Each name must hold
+    exactly ``reps`` spans, and every span of the trace (kernels, fills,
+    memsets and copies alike) must belong to one of them, so that their
+    sum is every launch a call makes."""
+    parts = {}
+    for name in names:
+        us = [t for n, t in spans if name in n]
+        check(len(us) == reps, f"the trace holds {len(us)} launches of "
+              f"{name}, not {reps}")
+        parts[name] = sum(us) / reps / 1e3
+    other = sorted({n for n, _ in spans if not any(k in n for k in names)})
+    check(not other, f"a call also runs {other}")
+    return parts
 
 
 def row_bound(nbytes: float, flops: float):
@@ -374,26 +414,87 @@ def tie_aware(f, fp, fx, td, tp, tol: float) -> int:
 
 def fused_inputs(rng, nq, n, d, dev, mask_kind="partial", dup=False):
     """Packed-kernel inputs for a random case, prepared as the main path
-    prepares them (``ops.fused_kernel_args``)."""
-    from repro_torch.kernels import fused_scan as fs
+    prepares them (``ops.fused_kernel_args``).  Mask kinds: ``partial``
+    (30 % of rows), ``holes`` (every row but two whole blocks),
+    ``sparse`` (0-6 rows a query, some queries none), ``rerank`` (40 rows
+    a query, scattered, as an exact re-rank admits them), ``few`` (30 %,
+    but query 1 admits 50 rows and query 2 none), ``nan`` (30 %, every
+    query admits the NaN rows 7 and n // 2; query 0 admits 20 rows, both
+    NaN rows among them), ``inf`` (30 %, rows 3 and 11 hold 1e20 in every
+    feature, so their fp32 d2 overflows to +inf; every query admits them,
+    query 0 60 rows in all), ``unsampled`` (half the rows at offsets 8-31
+    of each 32-row group, none the scan's witnesses sample: the threshold
+    stays +inf and full candidate regions are rescanned) and ``dup4``
+    (every row one of 4 distinct vectors: d2 ties at the threshold)."""
     from repro_torch.kernels import ops
     q = rng.normal(size=(nq, d)).astype(np.float32)
     x = rng.normal(size=(n, d)).astype(np.float32)
     if dup:                       # equal d2 with distinct pks
         x[1::2] = x[0::2][:len(x[1::2])]
-    if mask_kind == "partial":
+    if mask_kind == "dup4":
+        x = x[rng.integers(0, 4, n)]
+    mask = fused_mask(rng, nq, n, mask_kind)
+    if mask_kind == "nan":
+        x[[7, n // 2]] = np.nan
+    elif mask_kind == "inf":
+        x[[3, 11]] = 1e20
+    pks = rng.permutation(n).astype(np.int64) * 3 + 1
+    return ops.fused_kernel_args(q, x, mask, pks, dev)[0]
+
+
+def fused_mask(rng, nq, n, kind):
+    """The (nq, n) bool mask of ``fused_inputs``' mask kind ``kind``."""
+    from repro_torch.kernels import fused_scan as fs
+    if kind in ("partial", "few", "nan", "inf"):
         mask = rng.random((nq, n)) < 0.3
-    elif mask_kind == "holes":
+    elif kind in ("holes", "dup4"):
         mask = np.ones((nq, n), bool)
         mask[:, :fs.BLOCK_N] = False
         mask[:, n // 2:n // 2 + fs.BLOCK_N] = False
+    elif kind == "rerank":
+        mask = np.zeros((nq, n), bool)
+        for qi in range(nq):
+            mask[qi, rng.choice(n, size=40, replace=False)] = True
+    elif kind == "unsampled":
+        mask = (rng.random((nq, n)) < 0.5) & (np.arange(n) % 32 >= 8)
     else:                         # "sparse": few rows, some queries none
         mask = np.zeros((nq, n), bool)
         for qi in range(nq):
             if qi % 3:
                 mask[qi, rng.choice(n, size=qi % 7, replace=False)] = True
-    pks = rng.permutation(n).astype(np.int64) * 3 + 1
-    return ops.fused_kernel_args(q, x, mask, pks, dev)[0]
+    if kind == "few":
+        mask[1] = False
+        mask[1, rng.choice(n, size=50, replace=False)] = True
+        mask[2] = False
+    elif kind == "nan":
+        mask[:, [7, n // 2]] = True
+        mask[0] = False
+        rest = np.setdiff1d(np.arange(n), [7, n // 2])
+        mask[0, rng.choice(rest, size=18, replace=False)] = True
+        mask[0, [7, n // 2]] = True
+    elif kind == "inf":
+        mask[:, [3, 11]] = True
+        mask[0] = False
+        mask[0, rng.choice(np.arange(12, n), size=58, replace=False)] = True
+        mask[0, [3, 11]] = True
+    return mask
+
+
+# fused_scan_topk edge cases (nq, n, d, mask kind, duplicate rows): ragged
+# n and query counts, d in {2, 4, 8, 16, 37, 128, MAX_DIM} (d % 4 != 0
+# copies x 4 bytes at a time; d = 4096 leaves room for one scan block an
+# SM), whole-block holes, empty queries, a re-rank's 40 rows a query
+# over 262,144 rows, a query under 128 admitted rows, NaN and +inf d2
+# rows, ties (pairs, and 4 distinct rows at the threshold) and a mask the
+# witnesses never sample (threshold +inf: regions overflow and rescan)
+FUSED_EDGE = [(3, 1000, 16, "partial", False), (13, 1537, 128, "holes", False),
+              (10, 2048, 8, "sparse", False), (8, 1100, 4, "partial", True),
+              (16, 600, 2, "partial", True), (8, 4096, 4096, "partial", False),
+              (8, 262_144, 128, "rerank", False), (8, 5000, 64, "few", False),
+              (8, 3000, 32, "nan", False), (8, 3000, 32, "inf", False),
+              (8, 262_144, 24, "unsampled", False),
+              (8, 65_536, 16, "dup4", False),
+              (9, 20_000, 37, "partial", True)]
 
 
 def fused_plain(args):
@@ -407,22 +508,47 @@ def fused_plain(args):
 def fused_compare(args, out, plain) -> tuple:
     """Hold the kernel's and the plain version's answers against the exact
     one (``tie_aware``, per query at ``round_bound`` over the rows either
-    names).  Returns (max |d2 kernel - d2 plain| over filled slots, tie
-    swaps, median tol / k-th d2 over queries with a full answer); raises on
-    a disagreement or on a kernel order that is not strict."""
+    names).  Rows whose fp32 d2 is not finite are held apart: a NaN one
+    never enters an answer (the plain version, which sorts every kept row
+    at once, returns it after the empty slots, so it is read with its NaN
+    slots empty: ``nan_as_empty``); a +inf one (its d2 overflowed) follows
+    the finite rows, before the empty slots, in (pk, row) order, as the
+    TPU kernel's sort on (d2, pk) puts it: both answers must hold exactly
+    those.  Returns (max |d2 kernel - d2 plain| over finite slots, tie
+    swaps, median tol / k-th d2 over queries with a full answer); raises
+    on a disagreement or on a kernel order that is not strict."""
     import torch
     from repro_torch.kernels import fused_scan as fs
+    from repro_torch.kernels import ref
     q, d = args[0], args[0].shape[1]
     xk, mk, pk = fs.compact(*args[1:5])
+    d32 = ref.ivf_scan_ref(q, xk)
+    adm = mk.bool()
+    over = adm & torch.isposinf(d32)            # admitted, d2 overflowed
+    adm = adm & torch.isfinite(d32)
+    plain = nan_as_empty(*plain)
     x64, q64 = xk.double(), q.double()
     xn = (x64 ** 2).sum(dim=1)
     kd, kp, ki = (t.cpu().numpy() for t in out)
     rd, rp, ri = (t.cpu().numpy() for t in plain)
+    pk_h = pk[0].cpu().numpy().astype(np.int64)
     err, swaps, power = 0.0, 0, []
     for qi in range(len(kd)):
-        td, tp, trow = exact_topk(q64[qi], x64, mk[qi].bool(), pk[0],
-                                  fs.KMAX)
+        td, tp, trow = exact_topk(q64[qi], x64, adm[qi], pk[0], fs.KMAX)
         kf, rf = np.isfinite(kd[qi]), np.isfinite(rd[qi])
+        nf = len(td)
+        orow = torch.nonzero(over[qi]).flatten().cpu().numpy()
+        orow = orow[np.lexsort((orow, pk_h[orow]))][:fs.KMAX - nf]
+        no = len(orow)
+        for name, (dd, pp, rr) in (("kernel", (kd, kp, ki)),
+                                   ("plain version", (rd, rp, ri))):
+            check(bool(np.isposinf(dd[qi][nf:nf + no]).all())
+                  and np.array_equal(pp[qi][nf:nf + no], pk_h[orow])
+                  and np.array_equal(rr[qi][nf:nf + no], orow),
+                  f"{name}: the rows whose d2 overflowed are not the "
+                  f"{no} after the finite ones, in pk order")
+            check(bool((pp[qi][nf + no:] == ref.SENTINEL).all()),
+                  f"{name}: a row past the admitted ones")
         rows = np.concatenate([ki[qi][kf], ri[qi][rf], trow]).astype(np.int64)
         if not len(rows):
             check(not kf.any() and not rf.any(), "answer where none is due")
@@ -439,7 +565,7 @@ def fused_compare(args, out, plain) -> tuple:
         if kf.any():
             err = max(err, float(np.abs(kd[qi][kf] - rd[qi][kf]).max()))
         # the kernel's own order is exact: (d2, pk, row)
-        for j in range(nk - 1):
+        for j in range(nk + no - 1):
             a = (kd[qi][j], kp[qi][j], ki[qi][j])
             b = (kd[qi][j + 1], kp[qi][j + 1], ki[qi][j + 1])
             check(a < b, f"kernel order broken at slot {j}: {a} {b}")
@@ -548,11 +674,7 @@ def edge_checks(dev, errs) -> None:
     import torch
     from repro_torch.kernels import bitmap_filter, fused_scan, ivf_scan, ref
     rng = np.random.default_rng(0)
-    for nq, n, d, kind, dup in [(3, 1000, 16, "partial", False),
-                                (13, 1537, 128, "holes", False),
-                                (10, 2048, 8, "sparse", False),
-                                (8, 1100, 4, "partial", True),
-                                (16, 600, 2, "partial", True)]:
+    for nq, n, d, kind, dup in FUSED_EDGE:
         args = fused_inputs(rng, nq, n, d, dev, kind, dup)
         out = fused_scan.fused_scan_topk(*args)
         torch.cuda.synchronize()
@@ -637,19 +759,28 @@ def adc_case(rng, nq, n, m, kind):
 
 
 def nan_as_empty(d, p, r):
-    """The plain quantized version's (adc, pks, rows) with its NaN slots
-    taken as empty ones (+inf, SENTINEL, SENTINEL).  A row whose ADC is
-    NaN never enters the kernel's answer, as it never enters the TPU
-    kernel's running list, which starts with KMAX empty slots that order
-    before it.  The plain version sorts every kept row at once, so it
-    returns such rows after the unadmitted rows' empty slots.  NaN sorts
-    last, so only trailing slots change."""
+    """A plain scan version's (score, pks, rows) — quantized ADC or fused
+    d2 — with its NaN slots taken as empty ones (+inf, SENTINEL,
+    SENTINEL).  A row whose score is NaN never enters a kernel's answer,
+    as it never enters the TPU kernel's running list, which starts with
+    KMAX empty slots that order before it.  The plain version sorts every
+    kept row at once, so it returns such rows after the unadmitted rows'
+    empty slots.  NaN sorts last, so only trailing slots change."""
     import torch
     from repro_torch.kernels import ref
     nan = torch.isnan(d)
     sent = torch.full_like(p, ref.SENTINEL)
     return (torch.where(nan, torch.full_like(d, float("inf")), d),
             torch.where(nan, sent, p), torch.where(nan, sent, r))
+
+
+# quantized scan edge cases (nq, n, m, kind of ``adc_case``)
+ADC_EDGE = [(8, 1000, 8, "partial"), (13, 1537, 16, "holes"),
+            (16, 1, 4, "full"), (16, 2048, 8, "tile_empty"),
+            (8, 1100, 8, "dup"), (10, 700, 4, "partial"),
+            (8, 262_144, 8, "partial"), (8, 262_144, 8, "dup"),
+            (16, 131_072, 8, "holes"), (8, 1000, 8, "nan"),
+            (16, 262_144, 8, "nan")]
 
 
 def adc_edge_checks(dev, errs) -> None:
@@ -662,12 +793,7 @@ def adc_edge_checks(dev, errs) -> None:
     from repro_torch.kernels import ops, pq_adc, quantized_scan, ref
     rng = np.random.default_rng(1)
     host = torch.device("cpu")
-    for nq, n, m, kind in [(8, 1000, 8, "partial"), (13, 1537, 16, "holes"),
-                           (16, 1, 4, "full"), (16, 2048, 8, "tile_empty"),
-                           (8, 1100, 8, "dup"), (10, 700, 4, "partial"),
-                           (8, 262_144, 8, "partial"), (8, 262_144, 8, "dup"),
-                           (16, 131_072, 8, "holes"), (8, 1000, 8, "nan"),
-                           (16, 262_144, 8, "nan")]:
+    for nq, n, m, kind in ADC_EDGE:
         q, codes, books, mask, pks = adc_case(rng, nq, n, m, kind)
         lut = ops.adc_lut(q, books)
         args, _ = ops.quantized_kernel_args(lut, codes, mask, pks, dev)
@@ -1645,6 +1771,8 @@ def measure(record, orig, launches, errs, dev):
         l_ms = cuda_ms(library, reps=5, warm=1)
         bound, by = row_bound(nbytes, flops)
         fs_rows[tname] = (k_ms, p_ms, bound, by, l_ms)
+        log(f"fused_scan path shape ({nq}, {a[2].shape[1]}, {d}, "
+            f"{a[4].shape[0]}, {pairs}): {tname}")
         log(f"kernel fused_scan_topk {tname} nq={nq} kept rows="
             f"{xk.shape[0]} d={d}: max|dd2|={err:.3g} tie swaps={swaps} "
             f"median tol/kth d2={power:.3g}; "
@@ -1655,12 +1783,18 @@ def measure(record, orig, launches, errs, dev):
         main = "t6" if "t6" in fs_rows else next(iter(fs_rows))
         e_ms, p_ms, bound, by, l_ms = fs_rows[main]
         a = record["fused"][main]
-        k_ms = kernel_ms(lambda: orig["fused"](*a), FUSED_KERNELS)
-        log(f"kernel fused_scan_topk {main}: {k_ms:.4f} ms device time "
-            f"({' + '.join(FUSED_KERNELS)}), {e_ms:.4f} ms a call by CUDA "
-            f"events")
+        parts = kernel_parts(lambda: orig["fused"](*a))
+        k_ms = sum(parts.values())
+        wit = witness_bytes(a)
+        log(f"kernel fused_scan_topk {main}: {k_ms:.4f} ms device time, "
+            f"every launch of a call (" + ", ".join(
+                f"{k} {v:.4f}" for k, v in parts.items()) + f" ms), "
+            f"{e_ms:.4f} ms a call by CUDA events; the witnesses re-read at "
+            f"most {wit} bytes of x beside the bound's "
+            f"({wit / HBM_BYTES_PER_S * 1e3:.4f} ms)")
         out.append(("fused_scan_topk", k_ms, p_ms, bound, by, l_ms,
-                    {"events_ms": e_ms}))
+                    {"events_ms": e_ms, "launch_ms": parts,
+                     "witness_bytes": wit}))
     if record["quantized"]:
         out.append(measure_quantized(record, orig))
     if record["blocks"]:
@@ -1748,6 +1882,20 @@ def measure(record, orig, launches, errs, dev):
                      "plain_ms": p_ms, "bound_ms": bound, "bound_by": by,
                      "library_ms": l_ms, **(extra[0] if extra else {})})
     return line
+
+
+def witness_bytes(args) -> int:
+    """The most bytes of x the fused scan's witnesses read on ``args``
+    (the wrapper's inputs) beside the scan's own read: their sampled rows
+    (``fused_scan.witness_rows``) of every query tile, 4 d bytes each (the
+    kernel reads only those some query of the tile admits)."""
+    from repro_torch.kernels import build
+    from repro_torch.kernels import fused_scan as fs
+    nq, d = args[0].shape
+    nkeep = args[4].shape[0]
+    chunks = fs.chunking(nq // fs.BLOCK_Q, nkeep,
+                         build.sm_count(args[0].device))
+    return fs.witness_rows(nkeep, chunks) * 4 * d * (nq // fs.BLOCK_Q)
 
 
 def zero_kernel(fn, kernel: str) -> str:

@@ -35,7 +35,7 @@ _L = ctypes.c_longlong
 # cudaError_t as int)
 SIGNATURES = {
     "fused_scan": {"fused_scan_topk_launch":
-                   [_P] * 12 + [_I, _I, _L, _I, _I, _I, _P]},
+                   [_P] * 16 + [_I, _I, _L, _I, _I, _L, _P]},
     "ivf_scan": {"ivf_scan_launch": [_P, _P, _P, _I, _I, _I, _I, _L, _P]},
     "bitmap_filter": {"bitmap_filter_launch":
                       [_P, _P, _P, _L, _I, _I, _P],

@@ -1,5 +1,6 @@
 // Per-warp running top-k list shared by the scan -> top-k kernels
-// (fused_scan.cu, quantized_scan.cu).
+// (fused_scan.cu, quantized_scan.cu), which take it for a chunk whose
+// candidates overflow their region (the rescan).
 //
 // A sorted list of kK = KMAX entries is spread over one warp's registers:
 // lane l holds list positions 4l .. 4l+3.  Entries are ordered by the
@@ -8,10 +9,6 @@
 // current worst entry before anything moves, so once a list is full most
 // candidates cost one compare; a winner is inserted with one warp-wide
 // count and one shift (shfl_up).
-//
-// topk_merge_chunks is the second pass of both kernels: one warp per query
-// merges the pass-1 blocks' sorted lists the same way, and stops reading a
-// list at its first entry that does not beat the current worst.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -91,7 +88,7 @@ __device__ __forceinline__ void list_insert(WarpList& L, float cd, int cp,
 
 // Offer each lane's candidate (when `valid`) to the warp's list, lowest
 // lane first.  Returns the ballot of lanes whose candidate beat the worst
-// entry at entry, which the merge pass uses to stop early.
+// entry at entry.
 __device__ __forceinline__ unsigned offer(WarpList& L, bool valid, float cd,
                                           int cp, int cr, int lane,
                                           float& wd, int& wp, int& wr) {
@@ -110,57 +107,6 @@ __device__ __forceinline__ unsigned offer(WarpList& L, bool valid, float cd,
     }
   }
   return first;
-}
-
-// Write a warp's list to out_* + base (kK entries, lane-strided).
-__device__ __forceinline__ void list_store(const WarpList& L, float* out_d,
-                                           int* out_p, int* out_r,
-                                           long long base, int lane) {
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    out_d[base + 4 * lane + j] = L.d[j];
-    out_p[base + 4 * lane + j] = L.p[j];
-    out_r[base + 4 * lane + j] = L.r[j];
-  }
-}
-
-// Pass 2: part_* (nq, n_chunks, kK) sorted lists -> out_* (nq, kK).
-__global__ void topk_merge_chunks(const float* __restrict__ part_d,
-                                  const int* __restrict__ part_p,
-                                  const int* __restrict__ part_r,
-                                  float* __restrict__ out_d,
-                                  int* __restrict__ out_p,
-                                  int* __restrict__ out_r, int nq,
-                                  int n_chunks) {
-  const int lane = threadIdx.x & 31;
-  const int qi = blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
-  if (qi >= nq) return;  // the whole warp leaves together
-  WarpList L;
-  list_init(L);
-  float wd = INFINITY;
-  int wp = kSentinel, wr = kSentinel;
-  for (int c = 0; c < n_chunks; ++c) {
-    const long long base = ((long long)qi * n_chunks + c) * kK;
-    for (int j0 = 0; j0 < kK; j0 += 32) {
-      const long long at = base + j0 + lane;
-      const unsigned won = offer(L, true, part_d[at], part_p[at],
-                                 part_r[at], lane, wd, wp, wr);
-      // each list is sorted: past its first loser nothing can win
-      if (won != kFull) break;
-    }
-  }
-  list_store(L, out_d, out_p, out_r, (long long)qi * kK, lane);
-}
-
-// Launch the merge pass: 8 warps (queries) a block.
-inline cudaError_t launch_merge_chunks(const float* part_d, const int* part_p,
-                                       const int* part_r, float* out_d,
-                                       int* out_p, int* out_r, int nq,
-                                       int n_chunks, cudaStream_t s) {
-  const int warps = 8;
-  topk_merge_chunks<<<(nq + warps - 1) / warps, warps * 32, 0, s>>>(
-      part_d, part_p, part_r, out_d, out_p, out_r, nq, n_chunks);
-  return cudaGetLastError();
 }
 
 }  // namespace

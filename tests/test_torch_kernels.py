@@ -254,6 +254,103 @@ def test_fused_wrapper_empty_slots():
     assert sorted(gi[2, :2].tolist()) == [5, 9]
 
 
+@pytest.mark.parametrize("n_qtiles,nkeep,sms", [
+    (1, 4096, 132), (1, 512, 132), (1, 303, 132), (1, 1, 132), (1, 3, 132),
+    (2, 4096, 132), (256, 4096, 132), (1, 100_000, 132), (3, 4096, 16)])
+def test_fused_chunking_covers_every_group(n_qtiles, nkeep, sms):
+    """The scan's grid: the kept blocks' 32-row groups in contiguous
+    chunks of sizes that differ by at most one, every group in exactly
+    one, no chunk empty, at most MAX_CHUNKS (the launcher's limit), two
+    blocks an SM over the query tiles and, with enough groups, the
+    MIN_CHUNKS a tile needs for KMAX witnesses; the witnesses sample about
+    1/32 of the rows; the scratch has the shapes the launcher writes."""
+    groups = nkeep * p_fs.BLOCK_N // p_fs.GROUP_ROWS
+    chunks = p_fs.chunking(n_qtiles, nkeep, sms)
+    assert 1 <= chunks <= min(p_fs.MAX_CHUNKS, groups)
+    spans = [p_fs.chunk_groups(c, chunks, nkeep) for c in range(chunks)]
+    assert spans[0][0] == 0 and spans[-1][1] == groups
+    assert all(a[1] == b[0] for a, b in zip(spans, spans[1:]))
+    sizes = [hi - lo for lo, hi in spans]
+    assert min(sizes) >= 1 and max(sizes) - min(sizes) <= 1
+    if groups >= p_fs.MIN_CHUNKS:
+        assert chunks * p_fs.WITNESSES >= p_fs.KMAX
+    want = max(p_fs.MIN_CHUNKS, -(-2 * sms // n_qtiles))   # 2 blocks an SM
+    assert chunks == min(want, p_fs.MAX_CHUNKS, groups)
+    sample = p_fs.witness_rows(nkeep, chunks)
+    most = p_fs.SAMPLE_ROWS * p_fs.SAMPLE_GROUPS        # rows a chunk
+    rows = nkeep * p_fs.BLOCK_N
+    if groups <= chunks * p_fs.SAMPLE_EVERY * p_fs.SAMPLE_GROUPS:
+        # one group in 8, rounded up a chunk
+        assert rows / 32 <= sample <= rows / 32 + chunks * p_fs.SAMPLE_ROWS
+    assert sample <= chunks * most
+    nq = 8 * n_qtiles
+    scratch = p_fs.launch_scratch(nq, chunks, torch.device("cpu"))
+    cap = chunks * p_fs.KMAX
+    assert [tuple(t.shape) for t in scratch] == [
+        (nq, chunks * p_fs.WITNESSES), (nq,), (nq, cap), (nq, cap),
+        (nq, cap), (nq, cap), (nq,)]
+    assert [t.dtype for t in scratch] == [torch.int32, torch.float32,
+                                          torch.float32, torch.int32,
+                                          torch.float32, torch.int32,
+                                          torch.int32]
+
+
+def test_fused_wrapper_constants_are_the_sources():
+    """The wrapper sizes the grid, the scratch and the scan's shared memory
+    from constants of its own; they must be csrc/fused_scan.cu's, or the
+    launcher would refuse the launch (its smem check) or the buffers would
+    not be what the kernels write."""
+    import re
+    from pathlib import Path
+    src = (Path(p_fs.__file__).parent / "csrc" / "fused_scan.cu").read_text()
+
+    def const(name):
+        return int(re.search(rf"constexpr int {name} = (\d+)", src).group(1))
+    assert p_fs.GROUP_ROWS == const("kRows")
+    assert p_fs._TILE == const("kDk")
+    assert p_fs.WITNESSES == const("kWit")
+    assert p_fs.MAX_CHUNKS == const("kMaxChunks")
+    assert p_fs.SLOTS == const("kSlots")
+    assert p_fs._BLOCKS_PER_SM == const("kScanBlocks")
+    assert (p_fs.SAMPLE_ROWS, p_fs.SAMPLE_EVERY, p_fs.SAMPLE_GROUPS) == (
+        const("kSampleRows"), const("kSampleEvery"), const("kSampleGroups"))
+    assert p_fs._WARPS == const("kThreads") // 32
+    assert p_fs.MIN_CHUNKS * p_fs.WITNESSES >= p_fs.KMAX
+    # the query tile's padded stride: odd in float4s, never below d
+    for d in (1, 2, 4, 7, 8, 37, 128, 4096):
+        qs = p_fs.q_stride(d)
+        assert qs >= d and qs % 4 == 0 and (qs // 4) % 2 == 1
+    assert p_fs.smem_bytes(128) == (8 * 132 * 4 + 8 * 2 * (32 * 36 * 4)
+                                    + 8 * 2 * 16 + 8 * 2 * 32 + 32 + 64)
+
+
+def test_fused_wrapper_refuses_a_d_the_card_cannot_hold(monkeypatch):
+    """The query tile and each warp's ring sit in the scan's shared memory:
+    two scan blocks fit an SM at TRACY's d = 128, one block still fits at
+    d = MAX_DIM, a d past the card's per-block limit raises ValueError
+    (here on a card that allows less than d = 4096 needs), and d > MAX_DIM
+    is refused on every device, never a quiet fallback."""
+    from repro_torch.kernels import build as p_build
+    limit = p_build.smem_per_block("cpu")
+    assert 2 * (p_fs.smem_bytes(128) + 1024) <= 233_472     # an SM's 228 KB
+    assert p_fs.smem_bytes(p_fs.MAX_DIM) <= limit < p_fs.smem_bytes(5120)
+
+    def args(d):
+        return (torch.zeros((8, d)), torch.zeros((512, d)),
+                torch.ones((8, 512), dtype=torch.uint8),
+                torch.zeros(512, dtype=torch.int32),
+                torch.zeros(1, dtype=torch.int32),
+                torch.ones((1, 1), dtype=torch.int32))
+    with pytest.raises(ValueError, match="shapes"):
+        p_fs.fused_scan_topk(*args(p_fs.MAX_DIM + 1))
+    monkeypatch.setattr(p_build, "smem_per_block",
+                        lambda dev: p_fs.smem_bytes(p_fs.MAX_DIM) - 1)
+    with pytest.raises(ValueError, match="shared memory"):
+        p_fs.fused_scan_topk(*args(p_fs.MAX_DIM))
+    d, _, _ = p_fs.fused_scan_topk(*args(16))             # plain version
+    assert d.shape == (8, p_fs.KMAX)
+
+
 # ---------------------------------------------------------------------------
 # ops on the CPU vs the JAX package's default backend
 # ---------------------------------------------------------------------------
@@ -473,3 +570,34 @@ def test_kernels_match_plain_versions_on_the_card():
     assert (np.abs(card[0] - cpu[0])[fin]
             <= np.broadcast_to(tol, fin.shape)[fin]).all()
     np.testing.assert_array_equal(card[1], cpu[1])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind,n,d", [("partial", 20_000, 24),
+                                      ("rerank", 65_536, 32),
+                                      ("dup4", 65_536, 16),
+                                      ("nan", 3000, 32), ("inf", 3000, 32),
+                                      ("unsampled", 262_144, 24),
+                                      ("few", 5000, 37)])
+def test_fused_kernel_matches_plain_version_on_the_card(kind, n, d):
+    """The fused scan's kernel against its plain version on the card at
+    small shapes, held as ``chip_smoke.py`` holds it (tie-aware against
+    float64 at the fp32 rounding bound, NaN rows never in an answer, rows
+    whose d2 overflows after the finite ones in pk order): a dense mask,
+    a re-rank's 40 rows a query, ties at the threshold, NaN and +inf rows,
+    a mask the witnesses never sample (full regions rescanned) and a
+    query under 128 admitted rows, at d % 4 != 0 too."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    import importlib.util
+    from pathlib import Path
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+    rng = np.random.default_rng(9)
+    args = cs.fused_inputs(rng, 8, n, d, torch.device("cuda"), kind,
+                           kind == "partial")
+    out = p_fs.fused_scan_topk(*args)
+    plain, _ = cs.fused_plain(args)
+    cs.fused_compare(args, out, plain)

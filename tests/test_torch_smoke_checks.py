@@ -136,6 +136,102 @@ def test_fused_compare_catches_a_wrong_kernel_answer():
         cs.fused_compare(args, (d, p, i), plain)
 
 
+def _edge_case(kind, n=3000, d=32, nq=8):
+    """One of the smoke's fused edge inputs on the CPU: the wrapper's
+    arguments and the caller's rows (x, mask) behind them."""
+    rng = np.random.default_rng(5)
+    args = cs.fused_inputs(rng, nq, n, d, torch.device("cpu"), kind)
+    return args, args[1][:n], args[2][:, :n].bool()
+
+
+@pytest.mark.parametrize("kind", ["rerank", "few", "nan", "inf",
+                                  "unsampled", "dup4"])
+def test_fused_edge_inputs_hold_what_they_are_named_for(kind):
+    """Each mask kind the redesigned scan's edge cases add builds what its
+    name says: 40 rows a query; a query under 128 admitted rows and one
+    with none; NaN rows every query admits; rows whose fp32 d2 overflows
+    to +inf, every query admitting them; no row the witnesses sample
+    (offsets 0-7 of a 32-row group); 4 distinct rows in all."""
+    from repro_torch.kernels import ref
+    args, x, mask = _edge_case(kind, n=65_536 if kind == "unsampled"
+                               else 3000)
+    per_q = mask.sum(dim=1)
+    if kind == "rerank":
+        assert (per_q == 40).all()
+    elif kind == "few":
+        assert per_q[1] == 50 and per_q[2] == 0 and (per_q[3:] > 128).all()
+    elif kind == "nan":
+        nan_rows = torch.isnan(x).any(dim=1).nonzero().flatten().tolist()
+        assert nan_rows == [7, 1500] and mask[:, nan_rows].all()
+        assert per_q[0] == 20
+    elif kind == "inf":
+        d2 = ref.ivf_scan_ref(args[0], x)
+        over = torch.isposinf(d2).all(dim=0).nonzero().flatten().tolist()
+        assert over == [3, 11] and mask[:, over].all()
+        assert torch.isfinite(d2[:, 12:]).all() and per_q[0] == 60
+    elif kind == "unsampled":
+        rows = mask.any(dim=0).nonzero().flatten()
+        assert ((rows % 32) >= 8).all() and (per_q > 10_000).all()
+    else:
+        assert len(torch.unique(x, dim=0)) <= 4
+
+
+def test_fused_edge_list_reaches_the_new_design():
+    """The smoke's fused edge cases take d = MAX_DIM (one scan block an
+    SM), a d that is no multiple of 4 (4-byte copies), a re-rank mask
+    over at least 262,144 rows, and each of the kinds above."""
+    from repro_torch.kernels import fused_scan
+    cases = cs.FUSED_EDGE
+    assert any(c[2] == fused_scan.MAX_DIM for c in cases)
+    assert any(c[2] % 4 for c in cases)
+    assert any(c[3] == "rerank" and c[1] >= 262_144 for c in cases)
+    assert {"few", "nan", "inf", "unsampled", "dup4", "sparse",
+            "holes"} <= {c[3] for c in cases}
+    # the unsampled case leaves every query without a witness (tau +inf)
+    # and more admitted rows in each chunk than a region holds, on a card
+    # of 132 SMs: every region overflows and is rescanned
+    nq, n, d, kind, _ = next(c for c in cases if c[3] == "unsampled")
+    mask = cs.fused_mask(np.random.default_rng(0), nq, n, kind)
+    nkeep = n // fused_scan.BLOCK_N
+    chunks = fused_scan.chunking(1, nkeep, 132)
+    rows = np.arange(n)
+    assert not mask[:, rows % 32 < fused_scan.SAMPLE_ROWS].any()
+    for c in range(chunks):
+        lo, hi = fused_scan.chunk_groups(c, chunks, nkeep)
+        admitted = mask[:, lo * 32:hi * 32].sum(axis=1)
+        assert (admitted > fused_scan.KMAX).all()
+
+
+def test_fused_compare_holds_nan_and_inf_rows():
+    """A NaN row never enters an answer and rows whose d2 overflowed
+    follow the finite ones in pk order: the plain version's answers pass,
+    an answer with the overflowed rows swapped or a NaN row in it
+    fails."""
+    from repro_torch.kernels import fused_scan
+    args, x, mask = _edge_case("inf")
+    plain, _ = cs.fused_plain(args)
+    out = fused_scan.fused_scan_topk(*args)
+    cs.fused_compare(args, out, plain)
+    d, p, i = (t.clone() for t in out)
+    assert torch.isfinite(d[0, :58]).all() and torch.isposinf(d[0, 58:]).all()
+    pk3, pk11 = int(args[3][3]), int(args[3][11])
+    assert p[0, 58:60].tolist() == sorted([pk3, pk11])
+    assert (p[0, 60:] == fused_scan.SENTINEL).all()
+    p[0, 58], p[0, 59] = p[0, 59].clone(), p[0, 58].clone()
+    i[0, 58], i[0, 59] = i[0, 59].clone(), i[0, 58].clone()
+    with pytest.raises(cs.SmokeFailure, match="overflowed"):
+        cs.fused_compare(args, (d, p, i), plain)
+    args, x, mask = _edge_case("nan")
+    plain, _ = cs.fused_plain(args)
+    out = fused_scan.fused_scan_topk(*args)
+    cs.fused_compare(args, out, plain)
+    d, p, i = (t.clone() for t in out)
+    assert torch.isfinite(d[0, :18]).all() and torch.isinf(d[0, 18:]).all()
+    d[0, 18], p[0, 18], i[0, 18] = float("nan"), int(args[3][7]), 7
+    with pytest.raises(cs.SmokeFailure):
+        cs.fused_compare(args, (d, p, i), plain)
+
+
 def test_ivf_compare_holds_elements_to_the_rounding_bound():
     rng = np.random.default_rng(4)
     q = torch.from_numpy(rng.uniform(0, 100, (5, 2)).astype(np.float32))
@@ -296,16 +392,55 @@ def test_span_ms_sums_the_named_kernels_per_call():
         cs.span_ms(spans, "qscan_select", 3)
 
 
+def _kernels_of(*names):
+    """The __global__ kernels defined in the named csrc sources."""
+    import re
+    found = set()
+    for name in names:
+        src = (ROOT / "src/repro_torch/kernels/csrc" / name).read_text()
+        found |= set(re.findall(
+            r"__global__ void(?: __launch_bounds__\([^)]*\))?\s+(\w+)\(",
+            src))
+    return found
+
+
 def test_quantized_stage_names_are_the_kernels_of_the_source():
     """Each name the smoke times the quantized scan by is a kernel of
-    csrc/quantized_scan.cu, so the device-time check sees all of a call's
+    csrc/quantized_scan.cu or of the threshold and select it shares
+    (csrc/scan_select.cuh), so the device-time check sees all of a call's
     launches."""
-    import re
-    src = (ROOT / "src/repro_torch/kernels/csrc/quantized_scan.cu"
-           ).read_text()
-    kernels = set(re.findall(
-        r"__global__ void(?: __launch_bounds__\([^)]*\))?\s+(\w+)\(", src))
-    assert set(cs.QSCAN_KERNELS) == kernels
+    assert set(cs.QSCAN_KERNELS) == _kernels_of("quantized_scan.cu",
+                                                "scan_select.cuh")
+
+
+def test_fused_stage_names_are_the_kernels_of_the_source():
+    """The fused row's launches, timed apart and summed from one trace,
+    are the kernels of csrc/fused_scan.cu and of the threshold and select
+    it shares, no more and no fewer."""
+    assert set(cs.FUSED_KERNELS) == _kernels_of("fused_scan.cu",
+                                                "scan_select.cuh")
+    assert len(cs.FUSED_KERNELS) == 4
+
+
+def test_span_parts_times_each_launch_and_wants_no_other():
+    """One trace gives each named launch's time per call; a span of the
+    trace that is none of them (a fill, a memset, a copy) fails the run,
+    so their sum is what a call costs the card."""
+    spans = [("void (anonymous namespace)::fscan_witness<true>()", 4.0),
+             ("(anonymous namespace)::topk_threshold()", 1.0),
+             ("void (anonymous namespace)::fscan_scan<4, true>()", 40.0),
+             ("(anonymous namespace)::topk_select()", 5.0)] * 2
+    parts = cs.span_parts(spans, cs.FUSED_KERNELS, 2)
+    assert parts == pytest.approx({"fscan_witness": 0.004,
+                                   "topk_threshold": 0.001,
+                                   "fscan_scan": 0.04,
+                                   "topk_select": 0.005})
+    assert sum(parts.values()) == pytest.approx(0.05)
+    with pytest.raises(cs.SmokeFailure, match="also runs"):
+        cs.span_parts(spans + [("Memset (Device)", 2.0)],
+                      cs.FUSED_KERNELS, 2)
+    with pytest.raises(cs.SmokeFailure, match="launches of fscan_scan"):
+        cs.span_parts(spans[:6] + spans[7:], cs.FUSED_KERNELS, 2)
 
 
 def test_ivf_edge_shapes_reach_every_launch_path():

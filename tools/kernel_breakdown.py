@@ -1,35 +1,54 @@
 #!/usr/bin/env python3
-"""Break the earlier quantized scan down on the card, and hold this tree's
-``quantized_scan`` and ``ivf_scan`` kernels against the earlier ones.
+"""Break earlier scan kernels down on the card, and hold this tree's kernels
+against the earlier ones bitwise.
 
-    python3 tools/kernel_breakdown.py --parent DIR [--shapes-from LOG]
+    python3 tools/kernel_breakdown.py [--parent A42] [--fused-parent C4]
+        [--only SECTIONS] [--no-variants] [--shapes-from LOG]
 
-``DIR`` is the ``src/repro_torch/kernels/csrc`` directory of the parent
-commit (``a42a644``, whose quantized scan this tree replaced), unpacked
-from ``git archive a42a644 src/repro_torch/kernels`` into a directory that
-``.gitignore`` lists (``archive_check/``).  The patches below match that
-commit's sources line for line, so the variants build from it alone.  The
-script
+``A42`` is the ``src/repro_torch/kernels/csrc`` directory of ``a42a644``
+(whose quantized scan and ``ivf_scan`` a later tree replaced) and ``C4``
+that of ``c4ac6b8`` (whose fused scan a later tree replaced), each unpacked
+from ``git archive <commit> src/repro_torch/kernels`` into a directory
+that ``.gitignore`` lists (``archive_check/``).  The patches below match
+those commits' sources line for line, so the variants build from them
+alone.  Sections (``--only``, comma-separated; all by default):
 
-1. builds that ``quantized_scan.cu`` as it is and in variants with one
-   part taken out (the offers to the top-k lists, the LUT gathers, the
-   mask reads, both the offers and the gathers) or with its list inserts
-   counted, and times each variant's two launches (pass 1, the chunk
-   merge) by device time at the shape of the quantized path's g6 batch (8
-   queries x 2,097,152 rows, m = 8, every row admitted, 4,096 kept
-   blocks), with the earlier chunking, one chunk and 2,048 chunks;
-2. times this tree's kernel on the same inputs and holds its ADC values,
-   pks and rows against the earlier kernel's, bitwise;
-3. builds that ``ivf_scan.cu`` and holds this tree's kernel against it
-   bitwise at ``IVF_SHAPES`` and at every path shape a ``chip_smoke.py``
-   log lists (``--shapes-from``), timing both at ``IVF_SHAPES``.
+- ``qscan`` (A42): that ``quantized_scan.cu`` as it is and in variants
+  with one part taken out (the offers to the top-k lists, the LUT
+  gathers, the mask reads, both the offers and the gathers) or with its
+  list inserts counted, each variant's two launches (pass 1, the chunk
+  merge) timed by device time at the shape of the quantized path's g6
+  batch (8 queries x 2,097,152 rows, m = 8, every row admitted, 4,096
+  kept blocks), with the earlier chunking, one chunk and 2,048 chunks;
+  this tree's kernel timed on the same inputs and held to it bitwise.
+- ``ivf`` (A42): this tree's ``ivf_scan`` held to that one bitwise at
+  ``IVF_SHAPES`` and at every path shape a ``chip_smoke.py`` log lists
+  (``--shapes-from``), both timed at ``IVF_SHAPES``.
+- ``fused`` (C4): that ``fused_scan.cu`` as it is and in variants
+  without its offers to the top-k lists, without its chunk merge,
+  without its loads of x, without both offers and loads, or with its list
+  inserts counted (``--no-variants``: as it is only), pass 1 and the
+  merge timed apart by device time at ``FUSED_SHAPES`` (t6's 8 x
+  2,097,152 rows at d 128 and a shard's 262,144, every row admitted; a
+  re-rank's 40 rows a query over 2,097,152); this tree's kernel timed on
+  the same inputs, every launch of a call apart, paired with the earlier
+  (earlier, this tree, this tree, earlier), and held to it bitwise (d2,
+  pks, rows) there, at ``chip_smoke.FUSED_EDGE`` and at every fused path
+  shape a smoke log lists.
+- ``qhold`` (C4): this tree's quantized scan, whose threshold and select
+  it shares with the fused scan, held bitwise to c4ac6b8's at g6's shape
+  and at ``chip_smoke.ADC_EDGE``, and timed paired at g6.
+- ``tune``: this tree's fused scan launch without its FMAs and without
+  its copies of x, and the whole call at other ring depths and chunk
+  counts than the wrapper's (each held bitwise to the wrapper's answer),
+  at t6's and a shard's shape.
 
-The g6-shaped inputs are drawn from ``--seed`` on the card: uniform codes
-and squared-normal LUT entries, so the ADC values are i.i.d. over rows (the
-real g6 batch is timed by ``chip_smoke.py``).  Timers and the bitwise
-comparison are ``chip_smoke.py``'s.  The variants are written to and built
-in ``src/repro_torch/kernels/_build/breakdown/`` (ignored by git).  Needs
-one CUDA card and ``nvcc``; exits non-zero without them.
+Inputs are drawn from ``--seed`` on the card (g6: uniform codes and
+squared-normal LUT entries; fused: normal q and x, a pk permutation).
+Timers and the bitwise comparison are ``chip_smoke.py``'s.  Variants are
+written to and built in ``src/repro_torch/kernels/_build/breakdown/``
+(ignored by git).  Needs one CUDA card and ``nvcc``; exits non-zero
+without them.
 """
 from __future__ import annotations
 
@@ -162,7 +181,8 @@ def g6_inputs(seed: int):
 
 def qscan_breakdown(parent: Path, seed: int, work: Path) -> dict:
     import torch
-    from repro_torch.kernels import fused_scan, quantized_scan
+    from repro_torch.kernels import build as kb
+    from repro_torch.kernels import quantized_scan
     libs = {}
     for v, (lib, proc) in {v: build(parent, "quantized_scan", cu, h,
                                     work / f"qscan_{i}")
@@ -196,7 +216,7 @@ def qscan_breakdown(parent: Path, seed: int, work: Path) -> dict:
             return out
         return call
 
-    per0, chunks0 = fused_scan.chunking(nq // 8, nkeep, dev)
+    per0, chunks0 = parent_chunking(nq // 8, nkeep, kb.sm_count(dev))
     grids = {f"{chunks0} chunks (as chunked)": (per0, chunks0),
              "1 chunk": (nkeep, 1), "2048 chunks": (2, 2048)}
     res = {}
@@ -246,6 +266,362 @@ def qscan_breakdown(parent: Path, seed: int, work: Path) -> dict:
     res["this tree"] = t_new
     res["events"] = {"this tree": e_new, "earlier": e_old}
     return res
+
+
+# ------------------------------------------------------------- fused scan
+
+# the earlier fused scan's launcher and kernels (c4ac6b8's build.py and
+# fused_scan.cu): pass 1 and the chunk merge of topk_list.cuh
+FUSED_ARGS = [_P] * 12 + [_I, _I, _L, _I, _I, _I, _P]
+F_PASS1 = "fused_scan_pass1"
+# text patches of the earlier fused_scan.cu
+F_OFFER = "        offer(L, v, dist_s[warp][rr], cp, cr, lane, wd, wp, wr);"
+F_NO_OFFER = "        sink += dist_s[warp][rr] + (float)(cp ^ cr);"
+F_XLOAD = ("          x_s[rr * (kDk + 1) + kk] = x[(row0 + rr) * d + k0 + "
+           "kk];")
+F_NO_XLOAD = "          x_s[rr * (kDk + 1) + kk] = (float)(rr - kk);"
+F_MERGE = ("  return (int)launch_merge_chunks(part_d, part_p, part_r, out_d, "
+           "out_p,\n                                  out_r, nq, n_chunks, "
+           "s);")
+F_NO_MERGE = "  return 0;"
+F_VARIANTS = {
+    "as is": ([], []),
+    "no offers": ([(F_OFFER, F_NO_OFFER)] + SINK, []),
+    "no merge": ([(F_MERGE, F_NO_MERGE)], []),
+    "no x loads": ([(F_XLOAD, F_NO_XLOAD)], []),
+    "no offers, no x loads": ([(F_OFFER, F_NO_OFFER), (F_XLOAD, F_NO_XLOAD)]
+                              + SINK, []),
+    "inserts counted": VARIANTS["inserts counted"],
+}
+# the breakdown's shapes: (queries, rows, d, admitted rows a query or None
+# for every row)
+FUSED_SHAPES = {"t6": (8, 2_097_152, 128, None),
+                "shard": (8, 262_144, 128, None),
+                "rerank": (8, 2_097_152, 128, 40)}
+
+
+def parent_chunking(n_qtiles: int, nkeep: int, sms: int):
+    """(kept blocks per chunk, chunks) of the earlier fused scan's pass 1
+    (c4ac6b8's fused_scan.chunking: 4 blocks an SM over the query tiles)."""
+    want = max(1, -(-sms * 4 // n_qtiles))
+    per = max(1, -(-nkeep // min(want, nkeep)))
+    return per, -(-nkeep // per)
+
+
+def fused_shape_inputs(seed: int, nq: int, rows: int, d: int, per_query):
+    """Wrapper inputs on the card: normal q and x, a pk permutation, and a
+    mask admitting every row, or ``per_query`` random rows a query with
+    the kept blocks and occupancy grid that ``ops`` would build."""
+    import torch
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q = torch.randn((nq, d), generator=g, device=dev)
+    x = torch.randn((rows, d), generator=g, device=dev)
+    pks = torch.randperm(rows, generator=g, device=dev).to(torch.int32)
+    if per_query is None:
+        mask = torch.ones((nq, rows), dtype=torch.uint8, device=dev)
+    else:
+        mask = torch.zeros((nq, rows), dtype=torch.uint8, device=dev)
+        idx = torch.randint(0, rows, (nq, per_query), generator=g, device=dev)
+        mask.scatter_(1, idx, 1)
+    blk = mask.view(nq, -1, 512).any(dim=2)
+    keep = torch.nonzero(blk.any(dim=0)).flatten().to(torch.int32)
+    occ = blk[:, keep.long()].view(nq // 8, 8, -1).any(dim=1).to(torch.int32)
+    return q, x, mask, pks, keep.contiguous(), occ.contiguous()
+
+
+def fused_path_shapes(log_path: Path):
+    """The fused scan inputs a ``chip_smoke.py`` log lists ("fused_scan
+    path shape (nq, n, d, kept blocks, admitted pairs)") as (nq, rows, d,
+    admitted rows a query)."""
+    pat = re.compile(r"fused_scan path shape \((\d+), (\d+), (\d+), (\d+), "
+                     r"(\d+)\)")
+    out = set()
+    for nq, n, d, nkeep, pairs in pat.findall(log_path.read_text()):
+        nq, n, d, nkeep, pairs = map(int, (nq, n, d, nkeep, pairs))
+        out.add((nq, n, d, None if pairs >= nq * n
+                 else max(1, pairs // nq)))
+    return sorted(out, key=str)
+
+
+class ParentFused:
+    """The earlier fused scan (one built variant), called on wrapper
+    inputs with its own chunking."""
+
+    def __init__(self, lib):
+        self.fn = lib.fused_scan_topk_launch
+        self.fn.argtypes = FUSED_ARGS
+        self.fn.restype = _I
+
+    def caller(self, args):
+        import torch
+        from repro_torch.kernels import build as kb
+        q, x, mask, pks, keep, occ = args
+        nq, d = q.shape
+        nkeep = keep.shape[0]
+        dev = q.device
+        per, n = parent_chunking(nq // 8, nkeep, kb.sm_count(dev))
+        out = tuple(torch.empty((nq, 128), dtype=t, device=dev)
+                    for t in (torch.float32, torch.int32, torch.int32))
+        part = tuple(torch.empty((nq, n, 128), dtype=t, device=dev)
+                     for t in (torch.float32, torch.int32, torch.int32))
+        stream = torch.cuda.current_stream(dev).cuda_stream
+
+        def call():
+            err = self.fn(*(t.data_ptr() for t in args),
+                          *(t.data_ptr() for t in part + out), nq, d,
+                          mask.shape[1], nkeep, per, n, stream)
+            if err:
+                raise cs.SmokeFailure(f"earlier fused scan launch: {err}")
+            return out
+        return call
+
+
+def hold_fused(new, old, what: str) -> None:
+    """This tree's fused scan answer against the earlier kernel's:
+    d2, pks and rows bitwise."""
+    for x, y, name in zip(new, old, ("d2", "pks", "rows")):
+        cs.check(cs.same_bits(x, y), f"fused_scan_topk {what}: {name} differ "
+                 f"from the earlier kernel's")
+
+
+def fused_breakdown(parent: Path, seed: int, work: Path, extra=(),
+                    variants=True) -> dict:
+    """The breakdown of the earlier fused scan (every variant, or with
+    ``variants`` false the earlier kernel as it is only), and this tree's
+    kernel held against it bitwise and timed beside it."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import fused_scan
+    chosen = F_VARIANTS if variants else {"as is": F_VARIANTS["as is"]}
+    procs = {v: build(parent, "fused_scan", cu, h, work / f"fused_{i}")
+             for i, (v, (cu, h)) in enumerate(chosen.items())}
+    libs = {v: load(lib, proc, f"fused variant {v}")
+            for v, (lib, proc) in procs.items()}
+    parents = {v: ParentFused(lib) for v, lib in libs.items()}
+    res = {}
+    for sname, (nq, rows, d, per_q) in FUSED_SHAPES.items():
+        args = fused_shape_inputs(seed, nq, rows, d, per_q)
+        nkeep = args[4].shape[0]
+        pairs = int(args[2].bool().sum())
+        base = parents["as is"].caller(args)()
+        torch.cuda.synchronize()
+        base = tuple(t.clone() for t in base)
+        row = {}
+        for v, p in parents.items():
+            call = p.caller(args)
+            out = call()
+            torch.cuda.synchronize()
+            if v in ("as is", "inserts counted"):
+                hold_fused(out, base, f"variant {v} at {sname}")
+            reps = 10 if rows >= 2_000_000 else 20
+            names = (F_PASS1,) if v == "no merge" else (F_PASS1, MERGE)
+            t = {k: cs.kernel_ms(call, k, reps, 2) for k in names}
+            row[v] = t
+            log(f"fused {sname} ({nq} x {rows} rows, d {d}, {nkeep} kept "
+                f"blocks, {pairs} admitted pairs) {v}: "
+                + ", ".join(f"{k} {ms:.4f} ms" for k, ms in t.items())
+                + " device time")
+            if v == "inserts counted":
+                lib = libs[v]
+                lib.breakdown_inserts.argtypes = [_I]
+                lib.breakdown_inserts.restype = ctypes.c_ulonglong
+                lib.breakdown_inserts(1)
+                call()
+                torch.cuda.synchronize()
+                n = lib.breakdown_inserts(1)
+                log(f"fused {sname} inserts: {n} list inserts (pass 1 and "
+                    f"merge) for {pairs} candidates "
+                    f"({100 * n / max(1, pairs):.2f} %)")
+                row["inserts"] = n
+        # this tree's kernel on the same inputs, paired with the earlier:
+        # earlier, this tree, this tree, earlier
+        new = fused_scan.fused_scan_topk(*args)
+        torch.cuda.synchronize()
+        hold_fused(new, base, f"this tree at {sname}")
+        old_call = parents["as is"].caller(args)
+
+        def new_call():
+            return fused_scan.fused_scan_topk(*args)
+        old_ms = [cs.kernel_ms(old_call, None)]
+        parts = cs.kernel_parts(new_call)
+        new_ms = [sum(parts.values()), cs.kernel_ms(new_call, None)]
+        old_ms.append(cs.kernel_ms(old_call, None))
+        e_new, e_old = cs.cuda_ms(new_call), cs.cuda_ms(old_call)
+        row["this tree"] = {"ms": new_ms, "parts": parts, "events": e_new}
+        row["earlier"] = {"ms": old_ms, "events": e_old}
+        log(f"fused {sname} this tree: d2, pks and rows bitwise equal to the "
+            f"earlier kernel's; device time earlier {old_ms[0]:.4f} / "
+            f"{old_ms[1]:.4f} ms, this tree {new_ms[0]:.4f} / "
+            f"{new_ms[1]:.4f} ms ("
+            + ", ".join(f"{k} {v:.4f}" for k, v in parts.items())
+            + f"); CUDA events earlier {e_old:.4f}, this tree {e_new:.4f} ms")
+        res[sname] = row
+        del args, base, new
+        torch.cuda.empty_cache()
+    # bitwise at the smoke's edge cases and at the paths' shapes
+    rng = np.random.default_rng(seed)
+    dev = torch.device("cuda")
+    for nq, n, d, kind, dup in cs.FUSED_EDGE:
+        args = cs.fused_inputs(rng, nq, n, d, dev, kind, dup)
+        hold_fused(fused_scan.fused_scan_topk(*args),
+                   parents["as is"].caller(args)(),
+                   f"edge nq={nq} n={n} d={d} {kind} dup={dup}")
+        log(f"fused edge nq={nq} n={n} d={d} {kind} dup={dup}: bitwise equal "
+            f"to the earlier kernel")
+    for nq, rows, d, per_q in extra:
+        args = fused_shape_inputs(seed, nq, -(-rows // 512) * 512, d, per_q)
+        hold_fused(fused_scan.fused_scan_topk(*args),
+                   parents["as is"].caller(args)(),
+                   f"path shape {(nq, rows, d, per_q)}")
+        log(f"fused path shape nq={nq} rows={rows} d={d} admitted a query "
+            f"{per_q or 'all'}: bitwise equal to the earlier kernel")
+    res["held"] = {"edge": len(cs.FUSED_EDGE), "path shapes": len(extra)}
+    return res
+
+
+# text patches of this tree's fused_scan.cu: the scan without its FMAs
+# (each staged tile still read, one add a row) or without its copies of x,
+# each without candidates (what the unfilled ring holds, or distances
+# without their products, pass no filter)
+N_FMA = ("    accumulate(my_ring + sl * kStage, qb + m.kt * kDk, qs,\n"
+         "               min(kDk, d - m.kt * kDk), r, dot, xn);")
+N_NO_FMA = ("    xn[0] += my_ring[sl * kStage + r * kXs]\n"
+            "             + my_ring[sl * kStage + (r + 16) * kXs];")
+N_COPY = ("      copy_tile<kVec>(my_ring + sl * kStage, x, cur.row0, d, ft, "
+          "lane);")
+N_NO_COPY = "      (void)0;"
+N_PASS = ("          const bool pass = ((ok >> (2 * i + h)) & 1u) && d2 <= "
+          "thr[i];")
+N_NO_PASS = ("          const bool pass = ((ok >> (2 * i + h)) & 1u) && d2 == "
+             "1234.5f;")
+N_VARIANTS = {"scan as is": [],
+              "scan without FMAs": [(N_FMA, N_NO_FMA), (N_PASS, N_NO_PASS)],
+              "scan without copies of x": [(N_COPY, N_NO_COPY),
+                                           (N_PASS, N_NO_PASS)]}
+
+
+def launch_new(lib, args, chunks: int):
+    """This tree's fused scan launcher (of ``lib``) on wrapper inputs at a
+    chosen chunk count; returns a caller."""
+    import torch
+    from repro_torch.kernels import fused_scan
+    q, x, mask, pks, keep, occ = args
+    nq, d = q.shape
+    dev = q.device
+    scratch = fused_scan.launch_scratch(nq, chunks, dev)
+    out = fused_scan.launch_out(nq, dev)
+    fn = lib.fused_scan_topk_launch
+    stream = torch.cuda.current_stream(dev).cuda_stream
+
+    def call():
+        err = fn(*(t.data_ptr() for t in args),
+                 *(t.data_ptr() for t in scratch + out), nq, d,
+                 mask.shape[1], keep.shape[0], chunks,
+                 fused_scan.smem_bytes(d), stream)
+        if err:
+            raise cs.SmokeFailure(f"fused scan launch at {chunks} chunks: "
+                                  f"{err}")
+        return out
+    return call
+
+
+def fused_tune(seed: int, work: Path) -> dict:
+    """This tree's fused scan at t6's and a shard's shape: the scan launch
+    without its FMAs and without its copies (what holds it), and the whole
+    call at other chunk counts than the wrapper's (one and two waves of
+    the two blocks an SM holds, 512), each bitwise against the wrapper's
+    answer."""
+    import torch
+    from repro_torch.kernels import build as kb
+    from repro_torch.kernels import fused_scan
+    here = kb.CSRC
+    procs = {v: build(here, "fused_scan", cu, [], work / f"new_{i}")
+             for i, (v, cu) in enumerate(N_VARIANTS.items())}
+    libs = {}
+    for v, (lib, proc) in procs.items():
+        load(lib, proc, v)
+        libs[v] = kb._bind("fused_scan", lib)
+    for ln in kb.BUILD_LOG.get("fused_scan", "").splitlines():
+        if "registers" in ln or "spill" in ln or "Compiling" in ln:
+            log(f"  fused_scan: {ln.strip()}")
+    res = {}
+    sms = kb.sm_count(torch.device("cuda"))
+    for sname in ("t6", "shard"):
+        nq, rows, d, per_q = FUSED_SHAPES[sname]
+        args = fused_shape_inputs(seed, nq, rows, d, per_q)
+        want = fused_scan.fused_scan_topk(*args)
+        torch.cuda.synchronize()
+        want = tuple(t.clone() for t in want)
+        base = fused_scan.chunking(1, args[4].shape[0], sms)
+        row = {}
+        for v, lib in libs.items():
+            call = launch_new(lib, args, base)
+            ms = cs.kernel_ms(call, "fscan_scan")
+            row[v] = ms
+            log(f"fused {sname} {v}: fscan_scan {ms:.4f} ms device time")
+        for ch in sorted({base // 2, base, min(512, 2 * base), 512}):
+            call = launch_new(libs["scan as is"], args, ch)
+            hold_fused(call(), want, f"{sname} at {ch} chunks")
+            ms = cs.kernel_ms(call, None)
+            scan = cs.kernel_ms(call, "fscan_scan")
+            row[f"{ch} chunks"] = (ms, scan)
+            log(f"fused {sname} at {ch} chunks: {ms:.4f} ms device time "
+                f"(fscan_scan {scan:.4f}), bitwise equal to the wrapper's "
+                f"answer")
+        res[sname] = row
+        del args
+        torch.cuda.empty_cache()
+    return res
+
+
+def quantized_hold(parent: Path, seed: int, work: Path) -> dict:
+    """This tree's quantized scan against the one of ``parent`` (c4ac6b8's,
+    whose threshold and select this tree shares with the fused scan), both
+    through this tree's wrapper: bitwise at g6's shape and at the smoke's
+    quantized edge cases, timed paired at g6 (earlier, this tree, this
+    tree, earlier)."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import build as kb
+    from repro_torch.kernels import ops, quantized_scan
+    path, proc = build(parent, "quantized_scan", [], [], work / "qscan_c4")
+    load(path, proc, "c4ac6b8's quantized_scan")
+    theirs = kb._bind("quantized_scan", path)
+    mine = kb.build_all(["quantized_scan"])["quantized_scan"]
+
+    def run(lib, args):
+        kb._libs["quantized_scan"] = lib
+        return quantized_scan.quantized_scan_topk(*args)
+
+    def both(args, what):
+        new = run(mine, args)
+        old = run(theirs, args)
+        torch.cuda.synchronize()
+        for x, y, name in zip(new, old, ("adc", "pks", "rows")):
+            cs.check(cs.same_bits(x, y), f"quantized_scan_topk {what}: {name} "
+                     f"differ from c4ac6b8's")
+    try:
+        rng = np.random.default_rng(seed)
+        dev = torch.device("cuda")
+        for nq, n, m, kind in cs.ADC_EDGE:
+            q, codes, books, mask, pks = cs.adc_case(rng, nq, n, m, kind)
+            a, _ = ops.quantized_kernel_args(ops.adc_lut(q, books), codes,
+                                             mask, pks, dev)
+            both(a, f"edge nq={nq} n={n} m={m} {kind}")
+        args = g6_inputs(seed)
+        both(args, "at g6")
+        ms = {}
+        for who, lib in (("earlier", theirs), ("this tree", mine),
+                         ("this tree, again", mine),
+                         ("earlier, again", theirs)):
+            ms[who] = cs.kernel_ms(lambda: run(lib, args), None)
+    finally:
+        kb._libs["quantized_scan"] = mine
+    log(f"qscan against c4ac6b8: adc, pks and rows bitwise equal at g6 and "
+        f"at {len(cs.ADC_EDGE)} edge cases; device time at g6 "
+        + ", ".join(f"{k} {v:.4f}" for k, v in ms.items()) + " ms")
+    return ms
 
 
 def path_shapes(log_path: Path):
@@ -305,16 +681,34 @@ def ivf_compare(parent: Path, seed: int, work: Path, extra=()) -> dict:
     return res
 
 
+SECTIONS = ("qscan", "ivf", "fused", "qhold", "tune")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--parent", required=True, type=Path,
-                    help="csrc/ directory of the earlier tree")
+    ap.add_argument("--parent", type=Path, default=None,
+                    help="csrc/ directory of a42a644 (sections qscan, ivf)")
+    ap.add_argument("--fused-parent", type=Path, default=None,
+                    help="csrc/ directory of c4ac6b8 (sections fused, "
+                         "qhold)")
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--only", choices=("qscan", "ivf"), default=None)
+    ap.add_argument("--only", default=",".join(SECTIONS),
+                    help="comma-separated sections of " + ", ".join(SECTIONS))
+    ap.add_argument("--no-variants", action="store_true",
+                    help="section fused: time the earlier kernel as it is "
+                         "only, not its variants")
     ap.add_argument("--shapes-from", type=Path, default=None,
-                    help="a chip_smoke.py log: hold ivf_scan to the earlier "
-                         "kernel at every path shape it lists too")
+                    help="a chip_smoke.py log: hold ivf_scan and the fused "
+                         "scan to the earlier kernels at every path shape "
+                         "it lists too")
     args = ap.parse_args()
+    only = set(args.only.split(","))
+    if not only <= set(SECTIONS):
+        ap.error(f"--only takes sections of {SECTIONS}")
+    if only & {"qscan", "ivf"} and args.parent is None:
+        ap.error("sections qscan and ivf need --parent")
+    if only & {"fused", "qhold"} and args.fused_parent is None:
+        ap.error("sections fused and qhold need --fused-parent")
     import torch
     torch.backends.cuda.matmul.allow_tf32 = False
     if not torch.cuda.is_available():
@@ -327,12 +721,21 @@ def main() -> int:
     log(card)
     kb.build_all()
     out = {"card": card}
+    log_path = args.shapes_from
     try:
-        if args.only in (None, "qscan"):
+        if "qscan" in only:
             out["qscan"] = qscan_breakdown(args.parent, args.seed, work)
-        if args.only in (None, "ivf"):
-            extra = path_shapes(args.shapes_from) if args.shapes_from else ()
+        if "ivf" in only:
+            extra = path_shapes(log_path) if log_path else ()
             out["ivf"] = ivf_compare(args.parent, args.seed, work, extra)
+        if "fused" in only:
+            extra = fused_path_shapes(log_path) if log_path else ()
+            out["fused"] = fused_breakdown(args.fused_parent, args.seed,
+                                           work, extra, not args.no_variants)
+        if "qhold" in only:
+            out["qhold"] = quantized_hold(args.fused_parent, args.seed, work)
+        if "tune" in only:
+            out["tune"] = fused_tune(args.seed, work)
     except cs.SmokeFailure as e:
         print(f"kernel_breakdown.py: FAILED: {e}", file=sys.stderr)
         return 1

@@ -9,7 +9,10 @@
    last block, every block of a 2,097,152-point segment and NaN points;
    the fused scan at ``FUSED_EDGE``: d up to MAX_DIM, a re-rank's 40 rows a
    query over 262,144 rows, a query under 128 admitted rows, NaN and +inf
-   d2 rows, ties at its threshold, a mask its witnesses never sample).
+   d2 rows, ties at its threshold, a mask its witnesses never sample; the
+   beam search at ``GRAPH_EDGE``: a walk that stops before its last hop,
+   NaN rows, the most rows whose visited words fit shared memory and
+   2,097,152 rows on the global-memory path).
 2. Drives the port's main path: one TRACY tweet store (128-d embeddings,
    IVF / ZORDER / INVERTED / BTREE indexes, flush_rows 2048, fanout 4,
    pq_m 8) filled through ``LSMStore.put``/``flush`` on the card, then the
@@ -903,8 +906,10 @@ def merge_edge_checks(dev) -> None:
 def graph_case(rng, nq, n, d, r_deg, n_ent, kind):
     """A random packed CSR case as the wrapper takes it: ``ints`` draws
     small-integer vectors (every sum exact) and pks with duplicates
-    ((d2, pk) ties that break by position), ``floats`` normal vectors;
-    a quarter of the adjacency is -1 padding; query 0 admits no row."""
+    ((d2, pk) ties that break by position), ``floats`` normal vectors,
+    ``nan`` normal vectors with one row in 16 holding a NaN feature (a
+    NaN d2, which sorts after every number and enters no beam); a quarter
+    of the adjacency is -1 padding; query 0 admits no row."""
     from repro_torch.kernels import ref
     if kind == "ints":
         q = rng.integers(-3, 4, (nq, d)).astype(np.float32)
@@ -914,6 +919,8 @@ def graph_case(rng, nq, n, d, r_deg, n_ent, kind):
         q = rng.normal(size=(nq, d)).astype(np.float32)
         x = rng.normal(size=(n, d)).astype(np.float32)
         pks = (np.arange(n, dtype=np.int32) * 7 + 3)[None, :]
+    if kind == "nan":
+        x[rng.random(n) < 1 / 16, d // 2] = np.nan
     nbr = rng.integers(0, n, (n, r_deg)).astype(np.int32)
     nbr[rng.random((n, r_deg)) < 0.25] = -1
     mask = (rng.random((nq, n)) < 0.3).astype(np.uint8)
@@ -921,6 +928,35 @@ def graph_case(rng, nq, n, d, r_deg, n_ent, kind):
     ent = np.full((1, max(8, n_ent)), ref.SENTINEL, np.int32)
     ent[0, :n_ent] = rng.choice(n, n_ent, replace=False)
     return q, x, nbr, ent, mask, pks
+
+
+# graph_search_topk's edge cases (nq, n, d, R, beam, hops, entries, kind):
+# exact sums with tied pks, random floats, R 4, entries > beam, hops 0, the
+# widest beam; a walk that stops adding rows before its last hop (96 rows
+# under a beam of 128); NaN rows; d 13 and 67 (4-byte staging, a partial
+# feature tile); 4,096 entries (a capacity of 4,096) and R 64 under a beam
+# of 128 (8,192, staged in tiles of 64 rows); GRAPH_SMEM_ROWS, the most
+# rows whose visited words the kernel keeps in shared memory at that
+# shape; 2,097,152
+# rows (256 KB of visited words a query in global memory, 64-bit row
+# offsets), on a random CSR that needs no graph build
+GRAPH_SMEM_ROWS = 560_768
+GRAPH_EDGE = [(8, 512, 16, 8, 32, 4, 5, "ints"),
+              (8, 1024, 16, 16, 64, 4, 5, "floats"),
+              (16, 512, 12, 4, 40, 4, 5, "ints"),
+              (8, 512, 12, 8, 8, 3, 20, "floats"),
+              (8, 512, 16, 8, 8, 0, 5, "ints"),
+              (8, 8192, 128, 16, 128, 12, 136, "floats"),
+              (8, 96, 16, 8, 128, 12, 5, "ints"),
+              (8, 2048, 32, 16, 40, 8, 5, "nan"),
+              (8, 512, 13, 8, 32, 4, 5, "floats"),
+              (8, 1024, 67, 16, 40, 6, 5, "floats"),
+              (8, 8192, 128, 16, 40, 8, 4096, "floats"),
+              (8, 8192, 128, 64, 128, 4, 5, "floats"),
+              (8, GRAPH_SMEM_ROWS, 128, 16, 40, 8, 5, "floats"),
+              (8, 2097152, 128, 16, 40, 8, 5, "floats")]
+# the case whose walk must stop adding rows before its last hop
+GRAPH_STOPS = (8, 96, 16, 8, 128, 12, 5, "ints")
 
 
 def graph_compare(out, plain, what: str) -> None:
@@ -931,37 +967,49 @@ def graph_compare(out, plain, what: str) -> None:
 
 def graph_edge_checks(dev) -> None:
     """The beam-search kernel against its plain version, all four outputs
-    bitwise, on the card and on the host: exact-sum and random inputs,
-    -1 padding, an all-masked query, entries > beam, hops = 0, the
-    widest beam, 2,097,152 rows (256 KB of visited words per query in
-    global memory, 64-bit row offsets, on a random CSR that needs no
-    graph build); and through ``ops`` at a row count that is not a
+    bitwise, on the card and on the host, at ``GRAPH_EDGE`` (the walk of
+    ``GRAPH_STOPS`` shown to stop: its plain version's answer at one hop
+    fewer is the same; ``GRAPH_SMEM_ROWS`` shown to be the most rows the
+    wrapper keeps in shared memory, and the 2,097,152-row case to take the
+    global-memory path); and through ``ops`` at a row count that is not a
     multiple of 32 against the same host logic over the plain version."""
     import torch
-    from repro_torch.kernels import graph_search, ops, ref
+    from repro_torch.kernels import build, graph_search, ops, ref
     rng = np.random.default_rng(3)
     host = torch.device("cpu")
-    for nq, n, d, r_deg, beam, hops, n_ent, kind in [
-            (8, 512, 16, 8, 32, 4, 5, "ints"),
-            (8, 1024, 16, 16, 64, 4, 5, "floats"),
-            (16, 512, 12, 4, 40, 4, 5, "ints"),
-            (8, 512, 12, 8, 8, 3, 20, "floats"),
-            (8, 512, 16, 8, 8, 0, 5, "ints"),
-            (8, 8192, 128, 16, 128, 12, 136, "floats"),
-            (8, 2097152, 128, 16, 40, 8, 5, "floats")]:
+    limit = build.smem_per_block(dev)
+    for case in GRAPH_EDGE:
+        nq, n, d, r_deg, beam, hops, n_ent, kind = case
         args = [torch.from_numpy(a) for a in graph_case(
             rng, nq, n, d, r_deg, n_ent, kind)]
         dargs = [a.to(dev) for a in args]
         out = graph_search.graph_search_topk(*dargs, beam, hops)
         torch.cuda.synchronize()
+        n_e = args[3].shape[1]
+        path = graph_search.visited_path(n, d, beam, r_deg, n_e, limit)
+        rows = graph_search.tile_rows(
+            d, beam, graph_search.capacity(beam, r_deg, n_e), limit)
         what = (f"nq={nq} n={n} d={d} R={r_deg} beam={beam} hops={hops} "
-                f"entries={n_ent} {kind}")
+                f"entries={n_ent} {kind}, visited words in {path} memory, "
+                f"tiles of {rows} rows")
+        plain = ref.graph_search_topk_ref(*args, beam, hops)
         graph_compare(out, ref.graph_search_topk_ref(*dargs, beam, hops),
                       what + ", card")
-        graph_compare(out, ref.graph_search_topk_ref(*args, beam, hops),
-                      what + ", host")
+        graph_compare(out, plain, what + ", host")
         check(bool((out[2][0] == ref.SENTINEL).all()),
               "the all-masked query has a result")
+        if case == GRAPH_STOPS:
+            fewer = ref.graph_search_topk_ref(*args, beam, hops - 1)
+            check(all(same_bits(a, b) for a, b in zip(plain, fewer)),
+                  f"the walk of {what} adds rows in its last hop")
+            what += ", its last hop adds no row"
+        if n == GRAPH_SMEM_ROWS:
+            check(path == "shared" and graph_search.visited_path(
+                n + 32, d, beam, r_deg, n_e, limit) == "global",
+                f"{n} rows is not the most whose visited words fit shared "
+                f"memory at {what}")
+        if n >= 2_097_152:
+            check(path == "global", f"{what}: not the global-memory path")
         gathered = int(np.unpackbits(out[3].cpu().numpy().view(np.uint8),
                                      axis=1).sum())
         log(f"edge graph_search_topk {what}: d2, pks, rows and visited words "
@@ -2045,14 +2093,16 @@ def measure_merge(record, orig):
 def measure_graph(record, orig):
     """The beam search on every input the graph path gave it: all four
     outputs bitwise against its plain version and against what the path
-    got; a default-plan g6 batch timed.  Bound: the vectors, pks and
-    bitmap bytes of the rows the walk gathered (each read once), the
+    got, each input shape printed; a default-plan g6 batch timed (every
+    launch of a wrapper call, from a profiler trace).  Bound: the vectors,
+    pks and bitmap bytes of the rows the walk gathered (each read once), the
     queries, entries and outputs; 3 d operations per gathered row (the
     neighbour lists it reads are left out: a lower bound).  No single
     PyTorch call computes it."""
     import torch
     from repro_torch.kernels import ref
     timed = None
+    shapes = {}
     for a, got in record["graph"]:
         o = orig["graph"](*a)
         torch.cuda.synchronize()
@@ -2060,6 +2110,12 @@ def measure_graph(record, orig):
         graph_compare(o, got, "graph-path output")
         if timed is None:
             timed = (a, got)
+        key = tuple(a[0].shape) + tuple(a[2].shape) + (a[3].shape[1],
+                                                      a[6], a[7])
+        shapes[key] = shapes.get(key, 0) + 1
+    for key, calls in sorted(shapes.items()):
+        log(f"graph_search path shape (nq, d, n, R, entries, beam, hops) "
+            f"{key}: {calls} calls")
     a, got = timed
     q, x, nbr, ent, mask, pks, beam, hops = a
     nq, d = q.shape
@@ -2068,14 +2124,15 @@ def measure_graph(record, orig):
               + nq * beam * 12 + got[3].numel() * 4)
     bound, by = row_bound(nbytes, gathered * 3 * d)
     e_ms = cuda_ms(lambda: orig["graph"](*a))
-    k_ms = kernel_ms(lambda: orig["graph"](*a), "graph_search_kernel")
+    k_ms = kernel_ms(lambda: orig["graph"](*a), None)
     p_ms = cuda_ms(lambda: ref.graph_search_topk_ref(*a), reps=3, warm=1)
     log(f"kernel graph_search_topk: {len(record['graph'])} graph-path "
         f"inputs, d2, pks, rows and visited words bitwise equal to the plain "
         f"version and to the path's outputs; at nq={nq} rows={x.shape[0]} "
         f"R={nbr.shape[1]} entries={ent.shape[1]} beam={beam} hops={hops} "
         f"({gathered} rows gathered): kernel {k_ms:.4f} ms device time "
-        f"({e_ms:.4f} ms a call by CUDA events), plain {p_ms:.4f} ms, "
+        f"(every launch of a call; {e_ms:.4f} ms a call by CUDA events), "
+        f"plain {p_ms:.4f} ms, "
         f"library none, bound {bound:.6f} ms ({by})")
     return ("graph_search_topk", k_ms, p_ms, bound, by, None,
             {"events_ms": e_ms})

@@ -49,7 +49,7 @@ SIGNATURES = {
                    "topk_merge_launch":
                    [_P, _P, _P, _P, _L, _I, _I, _L, _P]},
     "graph_search": {"graph_search_topk_launch":
-                     [_P] * 10 + [_I, _I, _L, _I, _I, _I, _I, _I, _L, _P]},
+                     [_P] * 10 + [_I, _I, _L] + [_I] * 7 + [_L, _P]},
 }
 
 _lock = threading.Lock()

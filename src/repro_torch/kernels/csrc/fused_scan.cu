@@ -75,6 +75,7 @@
 #include <stdint.h>
 
 #include "scan_select.cuh"
+#include "smem_limit.cuh"
 #include "topk_list.cuh"
 
 namespace {
@@ -622,25 +623,6 @@ fscan_scan(const float* __restrict__ q, const float* __restrict__ x,
     cand_d[qi * cap + base + i] = reg_d[reg + i];
     cand_r[qi * cap + base + i] = reg_r[reg + i];
   }
-}
-
-constexpr int kDevices = 64;    // devices whose smem limits are cached
-
-// Raise a kernel's dynamic shared-memory limit on the current device to
-// `bytes` once: set[device] holds what was set (a call that needs no more
-// makes no driver call; a few microseconds a launch otherwise).
-template <typename Kernel>
-cudaError_t allow_smem(Kernel kernel, size_t bytes, size_t* set) {
-  int dev = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e != cudaSuccess) return e;
-  if (dev < 0 || dev >= kDevices) return cudaErrorInvalidDevice;
-  if (bytes <= set[dev]) return cudaSuccess;
-  e = cudaFuncSetAttribute(kernel,
-                           cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           (int)bytes);
-  if (e == cudaSuccess) set[dev] = bytes;
-  return e;
 }
 
 template <bool kVec>

@@ -2,11 +2,21 @@
 kernel (``csrc/graph_search.cu``) that replaces the JAX package's Pallas
 ``graph_search_topk``, and its wrapper.
 
-Per query: seed from every entry row, ``hops`` hops of expanding the whole
+Per query: seed from every entry row, ``hops`` hops of expanding the
 traversal beam's neighbour lists, the fresh rows merged into the
 unfiltered traversal beam and the mask-admitting result beam by (d2, pk).
 Returns the result beam and the visited bitmask (n / 32 int32 words per
-query), whose popcount is the rows-gathered statistic.
+query), whose popcount is the rows-gathered statistic.  The kernel expands
+only the rows new to the beam and drops fresh rows that can enter neither
+beam, which changes no output (``csrc/graph_search.cu``).
+
+One launch a call.  A staged tile holds 256 fresh rows, or fewer when
+the lists of a large capacity leave no room (``tile_rows``): every shape
+the graph path reaches (beam <= 128, d <= 4096, capacity <= 8,192) fits a
+block on sm_90.  The visited
+words live in the block's shared memory when they fit beside the rest of
+its layout (``visited_path``), else in the output tensor in global
+memory; the kernel writes every word either way.
 """
 from __future__ import annotations
 
@@ -18,21 +28,63 @@ from repro_torch.kernels import build, ref
 
 launches = build.LaunchCount()
 
+# csrc/graph_search.cu's layout constants (the tests hold them to it)
+TILE_ROWS = (256, 128, 64, 32)   # rows a staged tile may hold
+STAGE_STRIDE = 68    # kXs: a staged row's floats (64 features + 4)
+SLOTS = 2            # kSlots: staged tiles in flight
+HEADER = 4           # kHeader: words of the counts
+GROUP = 32           # sorted survivors a warp holds (the least capacity)
+
 
 def capacity(beam: int, r_deg: int, n_ent: int) -> int:
-    """Fresh rows one hop (or the seed) may add: the power of two the
-    kernel sizes its shared candidate lists to."""
-    cap = 1
-    while cap < max(beam * r_deg, n_ent, 1):
+    """Fresh rows (and so survivors) one hop or the seed may hold: the
+    power of two, at least one ``GROUP``, the kernel sizes its lists to
+    (the sort's width)."""
+    cap = GROUP
+    while cap < max(beam * r_deg, n_ent):
         cap *= 2
     return cap
 
 
-def smem_bytes(d: int, beam: int, cap: int) -> int:
-    """Dynamic shared memory of one block: the query, the traversal,
-    result and merge-output beams (d2, pk, row each) and the fresh-row
-    lists (d2, pk, row, sort key, admitted-flag prefix)."""
-    return 4 * (d + 9 * beam + 5 * cap + 1)
+def smem_bytes(d: int, beam: int, cap: int, vis_words: int = 0,
+               tile_rows: int = TILE_ROWS[0]) -> int:
+    """Shared memory of one block, all dynamic: the staged tiles, the
+    counts, the query (d rounded up to 4), the survivor records (4 words
+    each), the traversal and result beams twice (d2, pk, row), the rows
+    that entered the traversal beam, the fresh rows, and ``vis_words``
+    visited words (0 on the global-memory path)."""
+    return 4 * (SLOTS * tile_rows * STAGE_STRIDE + HEADER + -(-d // 4) * 4
+                + 5 * cap + 13 * beam + vis_words)
+
+
+# The rules below take ``limit``, the shared memory a block may use on the
+# device (``build.smem_per_block``), which the wrapper reads once a call.
+
+def tile_rows(d: int, beam: int, cap: int, limit: int) -> int:
+    """Rows of a staged tile: the most of ``TILE_ROWS`` whose layout fits
+    ``limit`` bytes (the fewest when none does, which the wrapper then
+    refuses)."""
+    return next((t for t in TILE_ROWS
+                 if smem_bytes(d, beam, cap, 0, t) <= limit), TILE_ROWS[-1])
+
+
+def visited_path(n: int, d: int, beam: int, r_deg: int, n_ent: int,
+                 limit: int) -> str:
+    """Where the kernel keeps a query's n / 32 visited words: ``shared``
+    when the block's layout with them fits ``limit`` bytes, else
+    ``global`` (the output tensor)."""
+    return "shared" if max_shared_rows(d, beam, r_deg, n_ent,
+                                       limit) >= n else "global"
+
+
+def max_shared_rows(d: int, beam: int, r_deg: int, n_ent: int,
+                    limit: int) -> int:
+    """The most rows (a multiple of 32) whose visited words the kernel
+    keeps in shared memory at this shape (0: none)."""
+    cap = capacity(beam, r_deg, n_ent)
+    spare = limit - smem_bytes(d, beam, cap, 0,
+                               tile_rows(d, beam, cap, limit))
+    return max(0, spare // 4) * 32
 
 
 def graph_search_topk(q: torch.Tensor, x: torch.Tensor,
@@ -65,8 +117,10 @@ def graph_search_topk(q: torch.Tensor, x: torch.Tensor,
         raise ValueError("graph_search_topk operands on different devices")
     n_ent = entries.shape[1]
     cap = capacity(beam, r_deg, n_ent)
-    smem = smem_bytes(d, beam, cap)
     limit = build.smem_per_block(q.device)
+    rows = tile_rows(d, beam, cap, limit)
+    shared = visited_path(n, d, beam, r_deg, n_ent, limit) == "shared"
+    smem = smem_bytes(d, beam, cap, n // 32 if shared else 0, rows)
     if smem > limit:
         raise ValueError(f"graph_search_topk: beam {beam} x R {r_deg} "
                          f"needs {smem} bytes of shared memory, a block "
@@ -80,8 +134,8 @@ def graph_search_topk(q: torch.Tensor, x: torch.Tensor,
     out_d = torch.empty((nq, beam), dtype=torch.float32, device=dev)
     out_p = torch.empty((nq, beam), dtype=torch.int32, device=dev)
     out_r = torch.empty((nq, beam), dtype=torch.int32, device=dev)
-    vis = torch.zeros((nq, n // 32), dtype=torch.int32, device=dev)
-    if nq == 0 or beam == 0:
+    vis = torch.empty((nq, n // 32), dtype=torch.int32, device=dev)
+    if nq == 0:
         return out_d, out_p, out_r, vis
     q, x, neighbors = q.contiguous(), x.contiguous(), neighbors.contiguous()
     entries, mask, pks = (entries.contiguous(), mask.contiguous(),
@@ -91,7 +145,7 @@ def graph_search_topk(q: torch.Tensor, x: torch.Tensor,
                  entries.data_ptr(), mask.data_ptr(), pks.data_ptr(),
                  out_d.data_ptr(), out_p.data_ptr(), out_r.data_ptr(),
                  vis.data_ptr(), nq, d, n, r_deg, n_ent, beam, hops, cap,
-                 smem, torch.cuda.current_stream(dev).cuda_stream)
+                 rows, int(shared), smem, torch.cuda.current_stream(dev).cuda_stream)
     build.check(err, "graph_search_topk")
     launches.add()
     return out_d, out_p, out_r, vis

@@ -520,3 +520,300 @@ def test_sharded_graph_parity():
         [[(r.pk, r.score) for r in rows] for rows, _ in exact]
     for _, st in graph:
         assert st.shards == 2
+
+
+# ---------------------------------------------------------------------------
+# the card kernel's dataflow, modelled in numpy
+# ---------------------------------------------------------------------------
+
+def _less(ad, ap, bd, bp):
+    """(d2, pk) order, NaN after every number (the kernel's less_dp)."""
+    an, bn = bool(np.isnan(ad)), bool(np.isnan(bd))
+    if an != bn:
+        return bn
+    if not an and ad != bd:
+        return bool(ad < bd)
+    return int(ap) < int(bp)
+
+
+def _order(s):
+    """Sort key of a survivor (d2, pk, row, key, ...) by (d2, pk, key)."""
+    nan = bool(np.isnan(s[0]))
+    return (nan, 0.0 if nan else float(s[0]), int(s[1]), int(s[3]))
+
+
+def _rank_merge(old, surv, beam):
+    """A rank merge of the (d2, pk, key)-sorted survivors into the
+    (d2, pk)-sorted beam ``old`` of (d2, pk, row): an old entry lands at
+    its index plus the survivors strictly below it, a survivor at its rank
+    plus the old entries at or below it.  Returns the new beam and the rows
+    of the survivors that entered it."""
+    new = [None] * beam
+    for i, (od, op, orow) in enumerate(old):
+        pos = i + sum(_less(s[0], s[1], od, op) for s in surv)
+        if pos < beam:
+            new[pos] = (od, op, orow)
+    entered = []
+    for j, s in enumerate(surv):
+        pos = j + sum(not _less(s[0], s[1], od, op) for od, op, _ in old)
+        if pos < beam:
+            new[pos] = (s[0], s[1], s[2])
+            entered.append(s[2])
+    assert None not in new
+    return new, entered
+
+
+def _pruned_walk(args, beam, hops):
+    """The CUDA kernel's dataflow (csrc/graph_search.cu): each round
+    (the seed, then each hop) expands only the rows that entered the
+    traversal beam in the round before, scores the fresh rows (d2 summed
+    over the features in order, one fp32 rounding an operation), keeps
+    only those that can enter the traversal beam (strictly below its last
+    entry) or, admitted, the result beam (strictly below its last entry),
+    and rank-merges them; the walk stops once a round adds no row to the
+    traversal beam.  Returns the four outputs and what the walk met: the
+    hops each query ran, and the fresh rows kept out of the traversal beam
+    by a (d2, pk) tie with its last entry."""
+    q, x, nbr, ent, mask, pks = args
+    nq, d = q.shape
+    n = x.shape[0]
+    inf = np.float32(np.inf)
+    out = (np.full((nq, beam), inf, np.float32),
+           np.full((nq, beam), SENT, np.int32),
+           np.full((nq, beam), SENT, np.int32))
+    vis = np.zeros((nq, n), bool)
+    ran, ties = [], 0
+    for qi in range(nq):
+        empty = [(inf, SENT, SENT)] * beam
+        trav, res = list(empty), list(empty)
+        fresh = []                              # (row, sort key)
+        for t, e in enumerate(ent[0]):
+            if e != SENT and 0 <= e < n:
+                vis[qi, e] = True
+                fresh.append((int(e), t))
+        front, h = [], 0
+        while beam > 0:
+            if h > 0:
+                if h > hops or not front:
+                    break
+                fresh = []
+                for f in front:
+                    for c in nbr[f]:
+                        if c >= 0 and not vis[qi, c]:
+                            vis[qi, c] = True
+                            fresh.append((int(c), int(c)))
+            rows = np.array([r for r, _ in fresh], np.int64)
+            acc = np.zeros(len(rows), np.float32)
+            for j in range(d):
+                diff = x[rows, j] - q[qi, j]
+                acc = acc + diff * diff
+            surv = []
+            for (r, key), d2 in zip(fresh, acc):
+                pk = pks[0, r]
+                ties += (d2, pk) == trav[-1][:2]      # kept out by a tie
+                to_b = _less(d2, pk, trav[-1][0], trav[-1][1])
+                to_r = bool(mask[qi, r]) and _less(d2, pk, res[-1][0],
+                                                   res[-1][1])
+                if to_b or to_r:
+                    surv.append((d2, pk, r, key, to_r))
+            surv.sort(key=_order)
+            trav, front = _rank_merge(trav, surv, beam)
+            res, _ = _rank_merge(res, [s for s in surv if s[4]], beam)
+            h += 1
+        ran.append(h - 1)
+        for i, (rd, rp, rr) in enumerate(res):
+            out[0][qi, i], out[1][qi, i], out[2][qi, i] = rd, rp, rr
+    words = np.packbits(vis, axis=1, bitorder="little").view(np.int32)
+    return (*out, words), {"hops run": ran, "ties at the cut": ties}
+
+
+def _twins(args):
+    """The rows of each pk (rows 3k, 3k + 1, 3k + 2 share pk k in the
+    ``ints`` cases) given row 3k's vector: every fresh row ties a sibling
+    in (d2, pk), and the row decides."""
+    q, x, nbr, ent, mask, pks = args
+    x = x.copy()
+    x[1::3] = x[0::3][:len(x[1::3])]
+    x[2::3] = x[0::3][:len(x[2::3])]
+    return q, x, nbr, ent, mask, pks
+
+
+# (seed, nq, n, d, R, entries, mask kind, beam, hops, twins): exact sums
+# with tied pks and -1 padding, the all-masked query, entries > beam, hops
+# 0, beam 128 over 12 hops (the walks end by hop 7), a walk that stops
+# before its last hop, and (d2, pk) ties at the beams' last slots
+PRUNED_CASES = [(0, 8, 512, 16, 8, 5, "one_empty", 32, 4, False),
+                (0, 8, 1024, 16, 16, 5, "partial", 64, 4, False),
+                (0, 16, 512, 12, 4, 5, "one_empty", 40, 4, False),
+                (1, 8, 512, 12, 8, 20, "full", 8, 3, False),
+                (1, 8, 512, 12, 8, 20, "one_empty", 8, 0, False),
+                (4, 8, 512, 16, 8, 5, "one_empty", 128, 12, False),
+                (5, 8, 96, 16, 8, 5, "one_empty", 128, 12, False),
+                (0, 8, 512, 16, 8, 5, "one_empty", 32, 4, True),
+                (7, 8, 512, 16, 8, 12, "partial", 24, 6, True)]
+
+
+@pytest.mark.parametrize(
+    "seed,nq,n,d,r_deg,n_ent,mask_kind,beam,hops,twins", PRUNED_CASES)
+def test_pruned_walk_is_bitwise_the_plain_version_and_pallas(
+        seed, nq, n, d, r_deg, n_ent, mask_kind, beam, hops, twins):
+    """Expanding only the rows new to the beam, dropping fresh rows that
+    can enter neither beam and stopping once a round adds nothing to the
+    traversal beam change no output: all four bitwise equal to the plain
+    version and to the Pallas kernel in interpret mode (and its oracle)."""
+    args = _case(seed, nq, n, d, r_deg, n_ent, "ints", mask_kind)
+    if twins:
+        args = _twins(args)
+    got, met = _pruned_walk(args, beam, hops)
+    for want in [_plain(args, beam, hops), *_reference(args, beam, hops)]:
+        for g, w in zip(got, want):
+            np.testing.assert_array_equal(_bits(g), _bits(w))
+    ran = met["hops run"]
+    assert max(ran) <= hops
+    if mask_kind == "one_empty":
+        assert (got[2][0] == SENT).all()
+    if n == 96:                 # 96 rows under a beam of 128: the walk
+        assert max(ran) < hops  # runs out of fresh rows and stops
+    if twins:                   # ties at the traversal beam's last slot
+        assert met["ties at the cut"] > 0
+
+
+def test_pruned_walk_with_nan_rows_is_bitwise_the_plain_version():
+    """Rows whose d2 is NaN sort after every number, (+inf, SENTINEL)
+    empty slots included, so they enter neither beam; the pruned walk
+    drops them as it scores them and stays bitwise the plain version."""
+    args = list(_case(6, 8, 512, 16, 8, 5, "ints", "one_empty"))
+    x = args[1].copy()
+    rng = np.random.default_rng(6)
+    x[rng.random(len(x)) < 1 / 8, 3] = np.nan
+    args[1] = x
+    for beam, hops in ((32, 4), (128, 12)):
+        got, _ = _pruned_walk(args, beam, hops)
+        want = _plain(args, beam, hops)
+        for g, w in zip(got, want):
+            np.testing.assert_array_equal(_bits(g), _bits(w))
+        nan_rows = set(np.flatnonzero(np.isnan(x).any(axis=1)).tolist())
+        vis = np.unpackbits(got[3].view(np.uint8), axis=1,
+                            bitorder="little").astype(bool)
+        assert any(vis[:, r].any() for r in nan_rows)     # NaN rows seen
+        assert not nan_rows & set(got[2][got[2] != SENT].tolist())
+
+
+def test_graph_wrapper_constants_are_the_sources():
+    """The wrapper computes the kernel's shared memory (which the launcher
+    refuses unless it is its own) and its visited-words path from
+    constants of its own: they must be csrc/graph_search.cu's."""
+    import re
+    from pathlib import Path
+    src = (Path(p_gs.__file__).parent / "csrc"
+           / "graph_search.cu").read_text()
+
+    def const(name):
+        return int(re.search(rf"constexpr int {name} = (\d+)", src).group(1))
+    # a tile holds a row a thread at most, and the launcher takes the
+    # wrapper's tile sizes and no other
+    assert p_gs.TILE_ROWS[0] == const("kThreads") == 256
+    assert ("(tile_rows != 256 && tile_rows != 128 && tile_rows != 64\n"
+            "          && tile_rows != 32)" in src)
+    assert p_gs.TILE_ROWS == (256, 128, 64, 32)
+    assert "constexpr int kXs = kDc + 4;" in src
+    assert p_gs.STAGE_STRIDE == const("kDc") + 4
+    assert (p_gs.STAGE_STRIDE // 4) % 2 == 1          # odd in float4s
+    assert p_gs.SLOTS == const("kSlots")
+    assert p_gs.HEADER == const("kHeader")
+    assert "cap < 32 ||" in src and p_gs.GROUP == 32   # whole warp groups
+    assert ("kSlots * tile_rows * kXs + kHeader + ((d + 3) & ~3)\n"
+            "         + 5LL * cap + 13LL * beam + (shared_vis ? n / 32 : 0)"
+            in src)
+    # the layout: 2 x 256 (or fewer) x 68 staged floats, the counts, the
+    # query, 5 words a fresh row (its row and 16-byte survivor record), 13
+    # a beam slot, the visited words
+    assert p_gs.smem_bytes(128, 40, 1024) == 4 * (
+        2 * 256 * 68 + 4 + 128 + 5 * 1024 + 13 * 40)
+    assert p_gs.smem_bytes(7, 8, 32, 100) == 4 * (
+        2 * 256 * 68 + 4 + 8 + 5 * 32 + 13 * 8 + 100)
+    assert p_gs.smem_bytes(128, 128, 8192, 0, 64) == 4 * (
+        2 * 64 * 68 + 4 + 128 + 5 * 8192 + 13 * 128)
+    # cap: a power of two, a run of 32 at least, holding a round's fresh
+    # rows and the entries
+    assert p_gs.capacity(40, 16, 8) == 1024
+    assert p_gs.capacity(8, 8, 20) == 64 and p_gs.capacity(8, 2, 20) == 32
+    assert p_gs.capacity(128, 16, 136) == 2048
+    assert p_gs.capacity(0, 16, 0) == 32
+
+
+LIMIT = 232_448      # shared memory a block may opt in to on sm_90
+
+
+def test_graph_visited_words_path_rule():
+    """The visited words go to shared memory while the block's layout with
+    them fits a block's shared memory (232,448 bytes on sm_90), else to
+    the output tensor in global memory: TRACY's GRAPH store (8,192 rows)
+    keeps them in shared memory, 2,097,152 rows in global memory."""
+    rule = p_gs.visited_path
+    assert rule(8192, 128, 40, 16, 8, LIMIT) == "shared"
+    assert rule(8192, 128, 128, 16, 8, LIMIT) == "shared"
+    assert rule(2_097_152, 128, 40, 16, 8, LIMIT) == "global"
+    top = p_gs.max_shared_rows(128, 40, 16, 8, LIMIT)
+    assert top == 560_768 and top % 32 == 0
+    assert rule(top, 128, 40, 16, 8, LIMIT) == "shared"
+    assert rule(top + 32, 128, 40, 16, 8, LIMIT) == "global"
+    assert p_gs.smem_bytes(128, 40, 1024, top // 32) <= 232_448 \
+        < p_gs.smem_bytes(128, 40, 1024, top // 32 + 1)
+    # a wider layout leaves fewer rows room
+    assert p_gs.max_shared_rows(128, 128, 16, 136, LIMIT) < top
+    assert p_gs.max_shared_rows(128, 2048, 16, 8, LIMIT) == 0
+
+
+def _earlier_smem(d, beam, cap):
+    """Shared memory of the earlier, unstaged kernel (commit 75ad3ab's
+    wrapper's smem_bytes)."""
+    return 4 * (d + 9 * beam + 5 * cap + 1)
+
+
+@pytest.mark.parametrize("d", [1, 13, 67, 128, 1000, 4096])
+def test_graph_takes_every_shape_the_earlier_kernel_took(d):
+    """The graph path's callers pass a beam of at most 128 (``ops`` clamps
+    it to KMAX) and a d of at most 4096 (its exact re-rank's MAX_DIM).
+    Every such (d, beam, capacity) whose layout the earlier kernel (commit
+    75ad3ab) fitted in a block's 232,448 bytes also fits the staged
+    layout, in tiles of fewer rows where the lists leave no room for 256.
+    """
+    limit = LIMIT
+    took = 0
+    for beam in range(1, 129):
+        cap = 32
+        while _earlier_smem(d, beam, cap) <= limit:
+            rows = p_gs.tile_rows(d, beam, cap, LIMIT)
+            assert p_gs.smem_bytes(d, beam, cap, 0, rows) <= limit, \
+                (d, beam, cap, rows)
+            took += 1
+            cap *= 2
+    assert took == 128 * 9                      # caps 32 .. 8192
+    # the tile shrinks only for the largest lists
+    assert p_gs.tile_rows(d, 128, 2048, LIMIT) == 256
+    assert p_gs.tile_rows(d, 128, 4096, LIMIT) == (128 if d > 1000 else 256)
+    assert p_gs.tile_rows(d, 128, 8192, LIMIT) == 64
+
+
+def test_graph_tile_rows_follow_the_capacity():
+    """A tile holds 256 rows while the layout has room, fewer (128, 64,
+    32) when a large capacity leaves none, and the wrapper refuses a shape
+    that does not fit even at 32; the launcher's arguments follow the
+    choice (``build.SIGNATURES``: cap, tile rows, shared flag, bytes)."""
+    from repro_torch.kernels import build
+    assert build.smem_per_block("cpu") == LIMIT
+    assert p_gs.tile_rows(128, 40, 1024, LIMIT) == 256
+    assert p_gs.tile_rows(128, 128, 8192, LIMIT) == 64
+    assert p_gs.tile_rows(4096, 128, 8192, LIMIT) == 64
+    assert p_gs.tile_rows(8000, 128, 8192, LIMIT) == 32
+    assert p_gs.smem_bytes(20_000, 128, 8192, 0, 32) > 232_448
+    assert p_gs.tile_rows(20_000, 128, 8192, LIMIT) == 32
+    sig = build.SIGNATURES["graph_search"]["graph_search_topk_launch"]
+    assert len(sig) == 22
+    args = [torch.from_numpy(a) for a in _case(3, 8, 512, 8, 4, 5, "ints")]
+    with pytest.raises(ValueError, match="shared memory"):
+        wide = torch.zeros((8, 20_000), dtype=torch.float32)
+        p_gs.graph_search_topk(wide, torch.zeros((512, 20_000)),
+                               torch.full((512, 64), -1, dtype=torch.int32),
+                               args[3], *args[4:], 128, 1)

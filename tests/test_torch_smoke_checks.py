@@ -333,6 +333,61 @@ def test_merge_and_graph_cases_have_ties_pads_and_padding():
     assert (x == np.round(x)).all() and (nbr == -1).any()
     assert not mask[0].any() and len(np.unique(pks)) < 512
     assert (ent[0, 5:] == 2 ** 31 - 1).all() and ent.shape == (1, 8)
+    q, x, nbr, ent, mask, pks = cs.graph_case(rng, 8, 512, 16, 8, 5, "nan")
+    assert np.isnan(x).any(axis=1).sum() > 0 and not np.isnan(q).any()
+    assert len(np.unique(pks)) == 512 and not mask[0].any()
+
+
+def test_graph_edge_cases_stop_early_meet_nan_rows_and_take_both_paths():
+    """The beam search's edge inputs as ``graph_edge_checks`` draws them:
+    the walk of ``GRAPH_STOPS`` adds no row in its last hop (its plain
+    answer is the same at one hop fewer), the NaN case's walk gathers NaN
+    rows and returns none, ``GRAPH_SMEM_ROWS`` is the most rows whose
+    visited words the wrapper keeps in shared memory at its shape, and
+    2,097,152 rows take the global-memory path.  Other cases stage with
+    4-byte copies (d % 4 != 0), end on a partial feature tile, seed more
+    than 2,048 entries and stage fewer than 256 rows a tile."""
+    from repro_torch.kernels import build, graph_search, ref
+    rng = np.random.default_rng(3)              # graph_edge_checks' draws
+    limit = build.smem_per_block("cpu")
+    held = set()
+    for case in cs.GRAPH_EDGE:
+        nq, n, d, r_deg, beam, hops, n_ent, kind = case
+        if n > 8192:
+            break                               # the large cases come last
+        args = [torch.from_numpy(a) for a in cs.graph_case(
+            rng, nq, n, d, r_deg, n_ent, kind)]
+        if case == cs.GRAPH_STOPS:
+            full = ref.graph_search_topk_ref(*args, beam, hops)
+            fewer = ref.graph_search_topk_ref(*args, beam, hops - 1)
+            assert all(cs.same_bits(a, b) for a, b in zip(full, fewer))
+            held.add("stops")
+        if kind == "nan":
+            x = args[1].numpy()
+            nan_rows = np.flatnonzero(np.isnan(x).any(axis=1))
+            assert 0 < len(nan_rows) < n // 8
+            out = ref.graph_search_topk_ref(*args, beam, hops)
+            vis = np.unpackbits(out[3].numpy().view(np.uint8), axis=1,
+                                bitorder="little").astype(bool)
+            assert vis[:, nan_rows].any()
+            assert not np.isin(out[2].numpy(), nan_rows).any()
+            held.add("nan")
+    assert held == {"stops", "nan"}
+    sizes = {c[1]: c for c in cs.GRAPH_EDGE}
+    nq, n, d, r_deg, beam, hops, n_ent, kind = sizes[cs.GRAPH_SMEM_ROWS]
+    assert cs.GRAPH_SMEM_ROWS == graph_search.max_shared_rows(
+        d, beam, r_deg, max(8, n_ent), limit)
+    nq, n, d, r_deg, beam, hops, n_ent, kind = sizes[2_097_152]
+    assert graph_search.visited_path(n, d, beam, r_deg, max(8, n_ent),
+                                     limit) == "global"
+    assert list(sizes)[-2:] == [cs.GRAPH_SMEM_ROWS, 2_097_152]
+    dims = [c[2] for c in cs.GRAPH_EDGE]
+    assert any(d % 4 for d in dims) and any(d > 64 and d % 64 for d in dims)
+    assert any(c[6] > 2048 for c in cs.GRAPH_EDGE)
+    rows = {graph_search.tile_rows(d, beam, graph_search.capacity(
+        beam, r_deg, max(8, n_ent)), limit)
+        for _, _, d, r_deg, beam, _, n_ent, _ in cs.GRAPH_EDGE}
+    assert 256 in rows and min(rows) < 256
 
 
 def test_row_bound_takes_the_larger_of_bytes_and_operations():

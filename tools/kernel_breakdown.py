@@ -1,17 +1,19 @@
 #!/usr/bin/env python3
-"""Break earlier scan kernels down on the card, and hold this tree's kernels
+"""Break earlier kernels down on the card, and hold this tree's kernels
 against the earlier ones bitwise.
 
     python3 tools/kernel_breakdown.py [--parent A42] [--fused-parent C4]
-        [--only SECTIONS] [--no-variants] [--shapes-from LOG]
+        [--graph-parent P21] [--only SECTIONS] [--no-variants]
+        [--shapes-from LOG]
 
 ``A42`` is the ``src/repro_torch/kernels/csrc`` directory of ``a42a644``
-(whose quantized scan and ``ivf_scan`` a later tree replaced) and ``C4``
-that of ``c4ac6b8`` (whose fused scan a later tree replaced), each unpacked
-from ``git archive <commit> src/repro_torch/kernels`` into a directory
-that ``.gitignore`` lists (``archive_check/``).  The patches below match
-those commits' sources line for line, so the variants build from them
-alone.  Sections (``--only``, comma-separated; all by default):
+(whose quantized scan and ``ivf_scan`` a later tree replaced), ``C4``
+that of ``c4ac6b8`` (whose fused scan a later tree replaced) and ``P21``
+that of ``75ad3ab`` (whose beam search a later tree replaced), each
+unpacked from ``git archive <commit> src/repro_torch/kernels`` into a
+directory that ``.gitignore`` lists (``archive_check/``).  The patches
+below match those commits' sources line for line, so the variants build
+from them alone.  Sections (``--only``, comma-separated; all by default):
 
 - ``qscan`` (A42): that ``quantized_scan.cu`` as it is and in variants
   with one part taken out (the offers to the top-k lists, the LUT
@@ -42,9 +44,21 @@ alone.  Sections (``--only``, comma-separated; all by default):
   its copies of x, and the whole call at other ring depths and chunk
   counts than the wrapper's (each held bitwise to the wrapper's answer),
   at t6's and a shard's shape.
+- ``graph`` (P21): that ``graph_search.cu`` as it is and in variants
+  without the scoring's row loads, without its sort, without its merges
+  (the walk then ends after one hop), expanding only the beam's entries
+  not expanded before (exact) or with each part of a round stamped by
+  clock64 (``--no-variants``: as it is only), timed by device time at the
+  graph path's own inputs (the smoke's GRAPH store, a g6 batch of 8 as
+  planned and widened to beam 128 over 12 hops); this tree's kernel
+  stamped the same way, timed paired with the earlier (earlier, this
+  tree, this tree, earlier) and held to it bitwise in all four outputs
+  there, at ``chip_smoke.GRAPH_EDGE`` and at every graph-path shape a
+  smoke log lists (random CSR inputs).
 
 Inputs are drawn from ``--seed`` on the card (g6: uniform codes and
-squared-normal LUT entries; fused: normal q and x, a pk permutation).
+squared-normal LUT entries; fused: normal q and x, a pk permutation;
+graph: ``chip_smoke.graph_case``).
 Timers and the bitwise comparison are ``chip_smoke.py``'s.  Variants are
 written to and built in ``src/repro_torch/kernels/_build/breakdown/``
 (ignored by git).  Needs one CUDA card and ``nvcc``; exits non-zero
@@ -681,7 +695,455 @@ def ivf_compare(parent: Path, seed: int, work: Path, extra=()) -> dict:
     return res
 
 
-SECTIONS = ("qscan", "ivf", "fused", "qhold", "tune")
+# ---------------------------------------------------------------------------
+# graph: 75ad3ab's beam search broken down, this tree's held to it
+# ---------------------------------------------------------------------------
+
+# the earlier tree's launcher (75ad3ab's build.py; that kernel, which
+# reads visited words the caller has zeroed)
+GRAPH_ARGS = [_P] * 10 + [_I, _I, _L, _I, _I, _I, _I, _I, _L, _P]
+GRAPH_KERNEL = "graph_search_kernel"
+
+# text patches of 75ad3ab's graph_search.cu: the scoring's global row loads
+# replaced by a value of the row id; no sort of the fresh rows; no merges
+# (the beams keep the seed, so the walk ends after one hop: a lower bound);
+# the expansion cut to the beam's entries not expanded before (exact: its
+# answer must equal the kernel's; rows up to 8,192, beams up to 128); and
+# clock64 stamps of each part of a round, summed over the blocks
+G_LOAD = "        const float diff = __fsub_rn(xr[j], L.q[j]);"
+G_NO_LOAD = "        const float diff = __fsub_rn((float)(c & 7), L.q[j]);"
+G_SORT = "  block_sort(L, n2);\n"
+G_MERGES = ("  merge_beam(L, L.bd, L.bp, L.bi, beam, nc, false);\n"
+            "  merge_beam(L, L.rd, L.rp, L.ri, beam, nc, true);\n")
+G_DECL = "  __shared__ int nc_s;\n"
+G_NEW_DECL = G_DECL + ("  __shared__ unsigned exp_s[256];\n"
+                       "  __shared__ int new_s[128];\n"
+                       "  for (int i = threadIdx.x; i < 256; i += kThreads) "
+                       "exp_s[i] = 0u;\n")
+G_HOP = ("    if (threadIdx.x == 0) nc_s = 0;\n"
+         "    __syncthreads();\n"
+         "    for (int t = threadIdx.x; t < beam * r_deg; t += kThreads) {\n"
+         "      const int f = L.bi[t / r_deg];\n"
+         "      if (f == kSentinel) continue;                 // dead "
+         "frontier lane\n")
+G_NEW_HOP = ("    if (threadIdx.x == 0) nc_s = 0;\n"
+             "    for (int i = threadIdx.x; i < beam; i += kThreads) {\n"
+             "      const int f = L.bi[i];\n"
+             "      new_s[i] = 0;\n"
+             "      if (f == kSentinel) continue;\n"
+             "      const unsigned b = 1u << (f & 31);\n"
+             "      new_s[i] = !(atomicOr(&exp_s[f >> 5], b) & b);\n"
+             "    }\n"
+             "    __syncthreads();\n"
+             "    for (int t = threadIdx.x; t < beam * r_deg; "
+             "t += kThreads) {\n"
+             "      const int f = L.bi[t / r_deg];\n"
+             "      if (f == kSentinel || !new_s[t / r_deg]) continue;\n")
+STAMP = ("  {{ const long long t1 = clock64();\n"
+         "    if (threadIdx.x == 0) atomicAdd(&g_phase[{k}], "
+         "(unsigned long long)(t1 - t0));\n"
+         "    t0 = t1; }}\n")
+G_PHASES = [
+    ("namespace {\n", "__device__ unsigned long long g_phase[8];\n\n"
+     "namespace {\n", 1),
+    ("  int n2 = 1;\n  while (n2 < nc) n2 <<= 1;\n",
+     "  long long t0 = clock64();\n  int n2 = 1;\n"
+     "  while (n2 < nc) n2 <<= 1;\n"),
+    ("  __syncthreads();\n  block_sort(L, n2);\n"
+     "  block_scan(L.cf, nc, warp_s);\n" + G_MERGES + "}\n",
+     "  __syncthreads();\n" + STAMP.format(k=1) + "  block_sort(L, n2);\n"
+     + STAMP.format(k=2) + "  block_scan(L.cf, nc, warp_s);\n"
+     + STAMP.format(k=3) + G_MERGES + STAMP.format(k=4)
+     + "  if (threadIdx.x == 0) {\n"
+       "    atomicAdd(&g_phase[6], (unsigned long long)nc);\n"
+       "    atomicAdd(&g_phase[7], 1ull);\n  }\n}\n"),
+    ("  extern __shared__ float smem[];\n",
+     "  const long long tk = clock64();\n  extern __shared__ float smem[];\n"),
+    ("  for (int h = 0; h < hops; ++h) {\n",
+     "  for (int h = 0; h < hops; ++h) {\n"
+     "    const long long te = clock64();\n"),
+    ("    __syncthreads();\n    const int nc = nc_s;\n",
+     "    __syncthreads();\n    const int nc = nc_s;\n"
+     "    if (threadIdx.x == 0)\n"
+     "      atomicAdd(&g_phase[0], (unsigned long long)(clock64() - te));\n"),
+    ("  for (int i = threadIdx.x; i < beam; i += kThreads) {\n"
+     "    out_d[qrow * beam + i] = L.rd[i];\n",
+     "  if (threadIdx.x == 0)\n"
+     "    atomicAdd(&g_phase[5], (unsigned long long)(clock64() - tk));\n"
+     "  for (int i = threadIdx.x; i < beam; i += kThreads) {\n"
+     "    out_d[qrow * beam + i] = L.rd[i];\n"),
+]
+PHASE_READER = ("extern \"C\" int breakdown_phases(unsigned long long* out, "
+                "int reset) {\n"
+                "  cudaMemcpyFromSymbol(out, g_phase, 8 * sizeof(*out));\n"
+                "  if (reset) {\n"
+                "    const unsigned long long z[8] = {0};\n"
+                "    cudaMemcpyToSymbol(g_phase, z, sizeof(z));\n  }\n"
+                "  return (int)cudaGetLastError();\n}\n")
+PHASES = ("expansion", "scoring", "sort", "scan", "merges")
+G_VARIANTS = {
+    "as is": [],
+    "no row loads": [(G_LOAD, G_NO_LOAD)],
+    "no sort": [(G_SORT, "")],
+    "no merges": [(G_MERGES, "")],
+    "new entries only": [(G_DECL, G_NEW_DECL), (G_HOP, G_NEW_HOP)],
+    "phases timed": G_PHASES,
+}
+# variants whose answer must be the kernel's, bit for bit
+G_EXACT = ("as is", "new entries only", "phases timed")
+
+# text patches of this tree's graph_search.cu: clock64 stamps of each
+# round's parts (slots 0-3), and its survivors, fresh rows, rounds and
+# rounds of more than 32 survivors (slots 4-7), summed over the blocks
+N_LOOP = ("  for (int h = 0; h <= hops && beam > 0; ++h) {   // beam 0: seeds "
+          "only\n")
+N_SCORE = ("    score_round(S, C, cur, x, pks, mask_q, d, beam, nc, tr, h == 0,"
+           " vec);\n")
+N_ROUND = N_SCORE + "    merge_round(S, C, cur, beam, C.ns);\n"
+N_SORT = "    sort_survivors(S.rec, gm, gp, n2);\n"
+N_PHASES = [
+    ("namespace {\n", "__device__ unsigned long long g_phase[8];\n\n"
+     "namespace {\n", 1),
+    (N_LOOP, N_LOOP + "    long long t0 = clock64();\n"),
+    (N_ROUND, STAMP.format(k=0)
+     + N_SCORE + STAMP.format(k=1) + "    const int ns_seen = C.ns;\n"
+     + "    merge_round(S, C, cur, beam, C.ns);\n"
+     + STAMP.format(k=2)
+     + "    if (threadIdx.x == 0) {\n"
+       "      atomicAdd(&g_phase[4], (unsigned long long)ns_seen);\n"
+       "      atomicAdd(&g_phase[5], (unsigned long long)nc);\n"
+       "      atomicAdd(&g_phase[6], 1ull);\n"
+       "      atomicAdd(&g_phase[7], (unsigned long long)(ns_seen > 32));"
+       "\n    }\n"),
+    (N_SORT, "    const long long ts = clock64();\n" + N_SORT
+     + "    if (threadIdx.x == 0)\n"
+       "      atomicAdd(&g_phase[3], "
+       "(unsigned long long)(clock64() - ts));\n"),
+]
+N_PARTS = ("expansion", "gather and score", "sort and merge",
+           "of which the sort")
+
+
+def build_graph(src_dir: Path, subs, out_dir: Path, reader: bool):
+    """Write one variant of ``src_dir``'s graph_search.cu (with the
+    headers beside it) into ``out_dir`` and start nvcc on it."""
+    from repro_torch.kernels import build as kb
+    out_dir.mkdir(parents=True, exist_ok=True)
+    cu = patch((src_dir / "graph_search.cu").read_text(), subs)
+    if reader:
+        cu += "\n" + PHASE_READER
+    (out_dir / "graph_search.cu").write_text(cu)
+    for h in src_dir.glob("*.cuh"):
+        (out_dir / h.name).write_text(h.read_text())
+    lib = out_dir / "graph_search.so"
+    cmd = [kb.nvcc_path(), *kb.NVCC_FLAGS, "-o", str(lib),
+           str(out_dir / "graph_search.cu")]
+    return lib, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                 stderr=subprocess.STDOUT, text=True)
+
+
+class ParentGraph:
+    """75ad3ab's beam search (one built variant), called on wrapper
+    inputs as its wrapper called it: the visited words zeroed by a fill,
+    then the kernel."""
+
+    def __init__(self, lib):
+        self.lib = lib
+        self.fn = lib.graph_search_topk_launch
+        self.fn.argtypes = GRAPH_ARGS
+        self.fn.restype = _I
+
+    def caller(self, a):
+        import torch
+        q, x, nbr, ent, mask, pks, beam, hops = a
+        nq, d = q.shape
+        n, r_deg = nbr.shape
+        n_ent = ent.shape[1]
+        cap = 1
+        while cap < max(beam * r_deg, n_ent, 1):
+            cap *= 2
+        smem = 4 * (d + 9 * beam + 5 * cap + 1)
+        dev = q.device
+        out = tuple(torch.empty((nq, beam), dtype=t, device=dev)
+                    for t in (torch.float32, torch.int32, torch.int32))
+        vis = torch.empty((nq, n // 32), dtype=torch.int32, device=dev)
+        stream = torch.cuda.current_stream(dev).cuda_stream
+
+        def call():
+            vis.zero_()
+            err = self.fn(*(t.data_ptr() for t in (q, x, nbr, ent, mask, pks)
+                            + out + (vis,)), nq, d, n, r_deg, n_ent, beam,
+                          hops, cap, smem, stream)
+            if err:
+                raise cs.SmokeFailure(f"earlier beam search launch: {err}")
+            return out + (vis,)
+        return call
+
+
+
+def phase_clocks(lib, reset: bool):
+    """The eight stamped counters of a variant built with PHASE_READER
+    (zeroed after the read with ``reset``)."""
+    buf = (ctypes.c_ulonglong * 8)()
+    lib.breakdown_phases.argtypes = [ctypes.c_void_p, _I]
+    lib.breakdown_phases.restype = _I
+    err = lib.breakdown_phases(ctypes.addressof(buf), int(reset))
+    if err:
+        raise cs.SmokeFailure(f"reading the phase clocks: {err}")
+    return list(buf)
+
+
+def graph_path_inputs():
+    """The beam search's inputs on the smoke's graph path: its GRAPH store
+    (``chip_smoke.graph_path``: TRACY at d 128, 8,192 rows in 8 segments,
+    fanout 32), one batch of 8 g6 queries at recall_target 0.95 as the
+    planner plans it, and the same batch at the widened beam (128, 12
+    hops).  Returns {"g6": args, "wide": args}, each (q, x, neighbours,
+    entries, mask, pks, beam, hops) on the card."""
+    import torch
+    from repro_torch.core.executor import Executor
+    from repro_torch.kernels import graph_search
+    dev = torch.device("cuda")
+    data = cs.TracyData(128, seed=3)
+    store, ingest_s = cs.tracy_store(dev, data, cs.GRAPH_ROWS, "GRAPH",
+                                     flush_rows=cs.GRAPH_FLUSH, fanout=32,
+                                     quantize=False)
+    log(f"graph store: {cs.GRAPH_ROWS} rows, ingest {ingest_s:.2f} s")
+    ex = Executor(store)
+    gt = cs.quantized_templates(cs.templates(data), cs.GRAPH_RECALL)
+    made = [gt["g6"]()[0] for _ in range(8)]
+    seen = []
+    orig = graph_search.graph_search_topk
+
+    def rec(*a):
+        seen.append(a)
+        return orig(*a)
+    graph_search.graph_search_topk = rec
+    try:
+        ex.execute_many(made)
+        plans = [ex.plan(m) for m in made]
+        for p in plans:
+            p.graph_beam, p.graph_hops = 128, 12
+        ex.execute_many(made, plans)
+    finally:
+        graph_search.graph_search_topk = orig
+    cs.check(len(seen) == 2, f"{len(seen)} beam searches for two batches")
+    return {"g6": seen[0], "wide": seen[1]}
+
+
+def graph_log_shapes(log_path: Path):
+    """The (nq, d, n, R, entries, beam, hops) beam-search inputs a
+    ``chip_smoke.py`` log lists ("graph_search path shape ...")."""
+    pat = re.compile(r"graph_search path shape \(nq, d, n, R, entries, "
+                     r"beam, hops\) \(([\d, ]+)\)")
+    return sorted({tuple(int(v) for v in m.split(","))
+                   for m in pat.findall(log_path.read_text())})
+
+
+def hold_graph(new, old, what: str) -> None:
+    """A beam-search answer against the earlier kernel's: d2, pks, rows
+    and visited words bitwise."""
+    for x, y, name in zip(new, old, ("d2", "pks", "rows", "visited words")):
+        cs.check(cs.same_bits(x, y), f"graph_search_topk {what}: {name} "
+                 f"differ from the earlier kernel's")
+
+
+def tree_launch(fn, a, shared: bool):
+    """A call of this tree's beam search through ``fn`` (its launcher, or
+    a variant's) on wrapper inputs ``a``, laid out as the wrapper lays it
+    out but with the visited words in shared memory or not as ``shared``
+    says.  The call returns the four outputs."""
+    import torch
+    from repro_torch.kernels import build as kb
+    from repro_torch.kernels import graph_search as gs
+    q, x, nbr, ent, mask, pks, beam, hops = a
+    nq, d = q.shape
+    n, r_deg = nbr.shape
+    n_ent = ent.shape[1]
+    cap = gs.capacity(beam, r_deg, n_ent)
+    rows = gs.tile_rows(d, beam, cap, kb.smem_per_block(q.device))
+    smem = gs.smem_bytes(d, beam, cap, n // 32 if shared else 0, rows)
+    out = tuple(torch.empty((nq, beam), dtype=t, device=q.device)
+                for t in (torch.float32, torch.int32, torch.int32))
+    vis = torch.empty((nq, n // 32), dtype=torch.int32, device=q.device)
+    fn.argtypes = kb.SIGNATURES["graph_search"]["graph_search_topk_launch"]
+    fn.restype = _I
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+
+    def call():
+        err = fn(*(t.data_ptr() for t in (q, x, nbr, ent, mask, pks) + out
+                   + (vis,)), nq, d, n, r_deg, n_ent, beam, hops, cap, rows,
+                 int(shared), smem, stream)
+        if err:
+            raise cs.SmokeFailure(f"this tree's beam search launch: {err}")
+        return out + (vis,)
+    return call
+
+
+def tree_phases(lib, a, base, sname: str, call_ms: float) -> dict:
+    """This tree's kernel with its rounds' parts stamped (``N_PHASES``),
+    launched once as the wrapper launches it on inputs ``a``, held to
+    ``base`` bitwise: each part's share of the stamped cycles and that
+    share of ``call_ms``, and what the rounds held."""
+    import torch
+    from repro_torch.kernels import build as kb
+    from repro_torch.kernels import graph_search as gs
+    q, x, nbr, ent, mask, pks, beam, hops = a
+    nq, d = q.shape
+    n, r_deg = nbr.shape
+    shared = gs.visited_path(n, d, beam, r_deg, ent.shape[1],
+                             kb.smem_per_block(q.device)) == "shared"
+    call = tree_launch(lib.graph_search_topk_launch, a, shared)
+    phase_clocks(lib, True)
+    out = call()
+    torch.cuda.synchronize()
+    hold_graph(out, base, f"this tree, stamped, at {sname}")
+    ph = phase_clocks(lib, True)
+    total = sum(ph[:3])
+    parts = {k: ph[i] / total for i, k in enumerate(N_PARTS)}
+    rounds = ph[6] / nq
+    row = {"shares": parts, "rounds a query": rounds,
+           "fresh a round": ph[5] / max(1, ph[6]),
+           "survivors a round": ph[4] / max(1, ph[6]),
+           "rounds of over 32 survivors a query": ph[7] / nq}
+    log(f"graph {sname} this tree, stamped (bitwise equal): "
+        + ", ".join(f"{k} {100 * v:.1f} % (~{v * call_ms * 1e3:.1f} us)"
+                    for k, v in parts.items())
+        + f"; {rounds:.2f} rounds a query, {row['fresh a round']:.1f} "
+        f"fresh rows and {row['survivors a round']:.1f} survivors a round, "
+        f"{row['rounds of over 32 survivors a query']:.2f} rounds a query "
+        f"of more than 32 survivors")
+    return row
+
+
+def visited_pairing(a, base, sname: str) -> dict:
+    """This tree's kernel with the visited words in shared memory (the
+    wrapper's path at ``a``) and forced into global memory, both held to
+    ``base`` bitwise, timed paired: shared, global, global, shared."""
+    import torch
+    from repro_torch.kernels import build as kb
+    fn = kb.launcher("graph_search")
+    sh, gl = tree_launch(fn, a, True), tree_launch(fn, a, False)
+    for call, path in ((sh, "shared"), (gl, "global")):
+        out = call()
+        torch.cuda.synchronize()
+        hold_graph(out, base, f"this tree, visited words in {path} memory, "
+                              f"at {sname}")
+    ms = {"shared": [cs.kernel_ms(sh, None)], "global": []}
+    ms["global"] += [cs.kernel_ms(gl, None), cs.kernel_ms(gl, None)]
+    ms["shared"].append(cs.kernel_ms(sh, None))
+    gap = sum(ms["global"]) / sum(ms["shared"]) - 1
+    log(f"graph {sname} this tree, visited words in shared / global memory "
+        f"(bitwise equal): {ms['shared'][0]:.4f} / {ms['global'][0]:.4f} / "
+        f"{ms['global'][1]:.4f} / {ms['shared'][1]:.4f} ms device time; "
+        f"global {100 * gap:+.2f} %")
+    return {"ms": ms, "global over shared": gap}
+
+
+def graph_breakdown(parent: Path, seed: int, work: Path, extra=(),
+                    variants=True) -> dict:
+    """75ad3ab's beam search broken down at the graph path's g6 and
+    widened-beam inputs (every variant, or with ``variants`` false as it
+    is only), and this tree's kernel held to it bitwise in all four
+    outputs there, at ``chip_smoke.GRAPH_EDGE`` and at every graph-path
+    shape of a smoke log (random CSR inputs), and timed beside it."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import graph_search
+    chosen = G_VARIANTS if variants else {"as is": G_VARIANTS["as is"]}
+    procs = {v: build_graph(parent, subs, work / f"graph_{i}",
+                            v == "phases timed")
+             for i, (v, subs) in enumerate(chosen.items())}
+    from repro_torch.kernels import build as kb
+    tree_lib = load(*build_graph(kb.CSRC, N_PHASES, work / "graph_tree",
+                                 True), "this tree's beam search, stamped")
+    parents = {v: ParentGraph(load(lib, proc, f"graph variant {v}"))
+               for v, (lib, proc) in procs.items()}
+    res = {}
+    for sname, a in graph_path_inputs().items():
+        q, x, nbr, ent, mask, pks, beam, hops = a
+        shape = (f"{q.shape[0]} queries x {x.shape[0]} rows, d "
+                 f"{x.shape[1]}, R {nbr.shape[1]}, {ent.shape[1]} entries, "
+                 f"beam {beam}, {hops} hops")
+        base = tuple(t.clone() for t in parents["as is"].caller(a)())
+        torch.cuda.synchronize()
+        gathered = int(cs.popcounts(base[3]).sum())
+        row = {"shape": shape, "gathered": gathered}
+        for v, p in parents.items():
+            call = p.caller(a)
+            if v == "phases timed":
+                phase_clocks(p.lib, True)
+            out = call()
+            torch.cuda.synchronize()
+            if v in G_EXACT:
+                hold_graph(out, base, f"variant {v} at {sname}")
+            if v == "phases timed":
+                ph = phase_clocks(p.lib, True)
+                total = ph[5]
+                row["phases"] = {k: ph[i] / total
+                                 for i, k in enumerate(PHASES)}
+                row["fresh a round"] = ph[6] / max(1, ph[7])
+                log(f"graph {sname} phases (share of the kernel's clock "
+                    f"cycles, summed over {q.shape[0]} blocks): "
+                    + ", ".join(f"{k} {100 * s:.1f} %"
+                                for k, s in row["phases"].items())
+                    + f"; {ph[6] / q.shape[0]:.1f} fresh rows a query in "
+                    f"{ph[7] / q.shape[0]:.1f} scored rounds")
+            k_ms = cs.kernel_ms(call, GRAPH_KERNEL)
+            row[v] = k_ms
+            log(f"graph {sname} ({shape}) {v}: {GRAPH_KERNEL} {k_ms:.4f} ms "
+                f"device time")
+        # this tree's wrapper on the same inputs, paired with the earlier
+        # kernel and its fill: earlier, this tree, this tree, earlier
+        new = graph_search.graph_search_topk(*a)
+        torch.cuda.synchronize()
+        hold_graph(new, base, f"this tree at {sname}")
+        old_call = parents["as is"].caller(a)
+
+        def new_call():
+            return graph_search.graph_search_topk(*a)
+        old_ms = [cs.kernel_ms(old_call, None)]
+        new_ms = [cs.kernel_ms(new_call, None), cs.kernel_ms(new_call, None)]
+        old_ms.append(cs.kernel_ms(old_call, None))
+        e_new, e_old = cs.cuda_ms(new_call), cs.cuda_ms(old_call)
+        row["this tree"] = {"ms": new_ms, "events": e_new}
+        row["earlier"] = {"ms": old_ms, "events": e_old}
+        log(f"graph {sname} this tree: d2, pks, rows and visited words "
+            f"bitwise equal to the earlier kernel's ({gathered} rows "
+            f"gathered); device time of every launch of a call: earlier "
+            f"{old_ms[0]:.4f} / {old_ms[1]:.4f} ms (fill and kernel), this "
+            f"tree {new_ms[0]:.4f} / {new_ms[1]:.4f} ms; CUDA events earlier "
+            f"{e_old:.4f}, this tree {e_new:.4f} ms")
+        row["this tree, stamped"] = tree_phases(tree_lib, a, base, sname,
+                                                new_ms[0])
+        if graph_search.visited_path(x.shape[0], x.shape[1], beam,
+                                     nbr.shape[1], ent.shape[1],
+                                     kb.smem_per_block(q.device)) \
+                == "shared":
+            row["visited words"] = visited_pairing(a, base, sname)
+        res[sname] = row
+    rng = np.random.default_rng(seed)
+    dev = torch.device("cuda")
+    cases = [(c, "edge") for c in cs.GRAPH_EDGE] + [
+        ((nq, n, d, r_deg, beam, hops, n_ent, "floats"), "path shape")
+        for nq, d, n, r_deg, n_ent, beam, hops in extra]
+    for (nq, n, d, r_deg, beam, hops, n_ent, kind), what in cases:
+        a = [torch.from_numpy(t).to(dev) for t in cs.graph_case(
+            rng, nq, n, d, r_deg, min(n_ent, n), kind)] + [beam, hops]
+        hold_graph(graph_search.graph_search_topk(*a),
+                   parents["as is"].caller(a)(),
+                   f"{what} nq={nq} n={n} d={d} R={r_deg} beam={beam} "
+                   f"hops={hops} {kind}")
+        log(f"graph {what} nq={nq} n={n} d={d} R={r_deg} beam={beam} "
+            f"hops={hops} entries={n_ent} {kind}: bitwise equal to the "
+            f"earlier kernel")
+        del a
+        torch.cuda.empty_cache()
+    res["held"] = {"edge": len(cs.GRAPH_EDGE), "path shapes": len(extra)}
+    return res
+
+
+SECTIONS = ("qscan", "ivf", "fused", "qhold", "tune", "graph")
 
 
 def main() -> int:
@@ -691,16 +1153,18 @@ def main() -> int:
     ap.add_argument("--fused-parent", type=Path, default=None,
                     help="csrc/ directory of c4ac6b8 (sections fused, "
                          "qhold)")
+    ap.add_argument("--graph-parent", type=Path, default=None,
+                    help="csrc/ directory of 75ad3ab (section graph)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--only", default=",".join(SECTIONS),
                     help="comma-separated sections of " + ", ".join(SECTIONS))
     ap.add_argument("--no-variants", action="store_true",
-                    help="section fused: time the earlier kernel as it is "
-                         "only, not its variants")
+                    help="sections fused and graph: time the earlier "
+                         "kernel as it is only, not its variants")
     ap.add_argument("--shapes-from", type=Path, default=None,
-                    help="a chip_smoke.py log: hold ivf_scan and the fused "
-                         "scan to the earlier kernels at every path shape "
-                         "it lists too")
+                    help="a chip_smoke.py log: hold ivf_scan, the fused "
+                         "scan and the beam search to the earlier kernels "
+                         "at every path shape it lists too")
     args = ap.parse_args()
     only = set(args.only.split(","))
     if not only <= set(SECTIONS):
@@ -709,6 +1173,8 @@ def main() -> int:
         ap.error("sections qscan and ivf need --parent")
     if only & {"fused", "qhold"} and args.fused_parent is None:
         ap.error("sections fused and qhold need --fused-parent")
+    if "graph" in only and args.graph_parent is None:
+        ap.error("section graph needs --graph-parent")
     import torch
     torch.backends.cuda.matmul.allow_tf32 = False
     if not torch.cuda.is_available():
@@ -736,6 +1202,10 @@ def main() -> int:
             out["qhold"] = quantized_hold(args.fused_parent, args.seed, work)
         if "tune" in only:
             out["tune"] = fused_tune(args.seed, work)
+        if "graph" in only:
+            extra = graph_log_shapes(log_path) if log_path else ()
+            out["graph"] = graph_breakdown(args.graph_parent, args.seed,
+                                           work, extra, not args.no_variants)
     except cs.SmokeFailure as e:
         print(f"kernel_breakdown.py: FAILED: {e}", file=sys.stderr)
         return 1

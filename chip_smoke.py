@@ -13,17 +13,18 @@
    beam search at ``GRAPH_EDGE``: a walk that stops before its last hop,
    NaN rows, the most rows whose visited words fit shared memory and
    2,097,152 rows on the global-memory path).
-2. Drives the port's main path: one TRACY tweet store (128-d embeddings,
-   IVF / ZORDER / INVERTED / BTREE indexes, flush_rows 2048, fanout 4,
-   pq_m 8) filled through ``LSMStore.put``/``flush`` on the card, then the
-   exact hybrid templates t6, t8, t10, t13 (one rank term, no
-   recall_target) and the filter-only t2, t4 through
-   ``Executor.execute_many`` in 21 batches of 8 each (the first, which
-   uploads the packed column, reported apart).  The kernels' launch counts
-   are zeroed just before and read just after; each must be > 0, and t2's
-   spatial probes must make one list launch per ``ZOrderIndex.bitmap``
-   call that lists a block (each call counted and checked as it returns)
-   and no per-block launch.
+2. Drives the port's main path through its ``Database`` facade: one
+   TRACY tweet table (128-d embeddings, IVF / ZORDER / INVERTED / BTREE
+   indexes, flush_rows 2048, fanout 4, pq_m 8) filled through
+   ``Table.put``/``flush`` on the card, then the exact hybrid templates
+   t6, t8, t10, t13 (one rank term, no recall_target) and the filter-only
+   t2, t4 as ``QueryBuilder``s through ``Database.execute_many`` in 21
+   batches of 8 each (the first, which uploads the packed column,
+   reported apart; one EXPLAIN per template printed).  The kernels'
+   launch counts are zeroed just before and read just after; each must
+   be > 0, and t2's spatial probes must make one list launch per
+   ``ZOrderIndex.bitmap`` call that lists a block (each call counted and
+   checked as it returns) and no per-block launch.
 3. Holds every NN answer against a plain PyTorch brute force on the card
    in float64 (``tie_aware`` at the fp32 rounding bound ``round_bound``:
    each reported d2 within it of its row's exact d2 and of the exact j-th
@@ -33,7 +34,7 @@
 4. The quantized path on the same store: TRACY's recall-targeted templates
    g6, g8, g13 (``benchmarks/tracy.py`` ``make_graph_templates`` at
    recall_target 0.9, as ``benchmarks/pq_study.py`` drives them) through
-   ``Executor.execute_many``, 21 batches of 8 each, each answer held
+   ``Database.execute_many``, 21 batches of 8 each, each answer held
    against the float64 brute force over the survivors the ADC kernel kept
    (the exact re-rank) and in (score, pk) order; recall@10 against the
    exact dispatch on the same draws; g6 at refine 12 against the exact
@@ -42,18 +43,28 @@
    ``IndexKind.PQIVF``, 20 t6- and 20 t8-shape queries through
    ``Executor.execute`` with a forced ``postfilter_nn`` plan; every
    returned distance against float64, recall@10 against a brute force.
-6. The sharded path: a 4-shard ``ShardRouter`` of the same shape holding
-   1,048,576 rows, t6, t8, t10, t13, t2, t4 through
-   ``ShardedExecutor.execute_many`` (21 batches of 8 each), every answer
-   checked as in 3, one cross-shard merge launch per NN batch, no
-   per-block bitmap launch at t2.
+6. The sharded path: ``Database(shards=4)``, a 4-shard ``ShardRouter`` of
+   the same shape holding 1,048,576 rows, t6, t8, t10, t13, t2, t4 through
+   ``Database.execute_many`` (the ``ShardedExecutor``; 21 batches of 8
+   each), every answer checked as in 3, one cross-shard merge launch per
+   NN batch, no per-block bitmap launch at t2.
 7. The graph path: a GRAPH store of 8,192 rows in 8 segments, g6, g8, g13
    at recall_target 0.95 through ``Executor.execute_many`` (21 batches of
    8 each, planned by the planner alone), each answer held against the
    float64 top-k over the beam's survivors, ``rows_scanned`` against the
    visited words' popcount; recall@10 against the exact dispatch and a
    widened beam against it bitwise, printed.
-8. Holds each kernel against its plain version on the inputs the paths
+8. The continuous path (``--phase continuous``): a 262,144-row TRACY
+   table of the main store's config, the subscriptions of
+   ``benchmarks/continuous_bench.py`` (12 SYNC, vector NN and
+   ``GeoWithin`` alternating) and two ASYNC through ``subscribe``, 6 ticks
+   of ``Database.advance`` in each of the modes none, fcache and views
+   with puts, updates and deletes before every tick but the first; then
+   the sharded table's ``ShardedContinuousEngine`` for 4 ticks.  Every
+   answer at every tick is held against a fresh ``execute`` and the
+   float64 brute force (a view's answer to the reference's own rule,
+   ``hold_subscription``), and the schedule is checked.
+9. Holds each kernel against its plain version on the inputs the paths
    gave it (ivf_scan and both bitmap filter entry points at every path
    shape), times both and one PyTorch library call where one computes the
    same function (every kernel by its device time in a profiler trace,
@@ -73,7 +84,7 @@ every kernel of the path must have launched.
 
     python3 chip_smoke.py                   # the full run (one GPU)
     python3 chip_smoke.py --phase kernels   # build + edge checks only
-    python3 chip_smoke.py --phase sharded   # or main | graph: one path
+    python3 chip_smoke.py --phase sharded   # or main | graph | continuous
 
 Any failing phase exits non-zero without the ``ok`` line.
 """
@@ -100,6 +111,15 @@ GRAPH_ROWS = 8_192                # the GRAPH store: the repo's graph study
 GRAPH_FLUSH = 1_024               # 8 segments of 1,024 rows
 GRAPH_RECALL = 0.95               # the graph templates' recall target
 BATCHES = 21                      # per template: the first, then 20 timed
+CONT_ROWS = 262_144               # the continuous table: every view
+#                                   registration backfills every view over
+#                                   every row on the host
+CONT_MODES = ("none", "fcache", "views")
+CONT_TICKS = 4                    # ticks a mode: the first, two after
+#                                   writes, one with no write before it
+SHARDED_CONT_TICKS = 4            # ticks of the sharded engine, the same
+CONT_PUT, CONT_UPDATE, CONT_DELETE = 2048, 256, 64   # writes before a tick
+VIEW_BUDGET = 64 * 2 ** 20        # the Database's default view budget
 FP32_U = 2.0 ** -24               # fp32 unit roundoff
 HBM_BYTES_PER_S = 3.35e12         # H100 SXM, NVIDIA data sheet
 FP32_FLOPS = 67e12                # H100 SXM fp32 outside the tensor cores
@@ -1053,6 +1073,16 @@ class TracyData:
                                      "t1", "t2")}
 
     def batch(self, pk0: int, n: int):
+        """Rows pk0 .. pk0 + n - 1, kept for the brute force."""
+        batch, t1, t2 = self.draw(n)
+        for k, v in (("embedding", batch["embedding"]),
+                     ("coordinate", batch["coordinate"]),
+                     ("time", batch["time"]), ("t1", t1), ("t2", t2)):
+            self.cols[k].append(v)
+        return list(range(pk0, pk0 + n)), batch
+
+    def draw(self, n: int):
+        """n rows' columns, not kept: (batch, topic 1, topic 2)."""
         rng = self.rng
         t1 = rng.integers(0, self.n_topics, n)
         t2 = rng.integers(0, self.n_topics, n)
@@ -1065,10 +1095,7 @@ class TracyData:
         tm = rng.uniform(0, 1000, n)
         batch = {"embedding": emb, "coordinate": pts, "content": words,
                  "time": tm, "likes": rng.zipf(2.0, n).astype(np.float64)}
-        for k, v in (("embedding", emb), ("coordinate", pts), ("time", tm),
-                     ("t1", t1), ("t2", t2)):
-            self.cols[k].append(v)
-        return list(range(pk0, pk0 + n)), batch
+        return batch, t1, t2
 
     def finish(self):
         self.cols = {k: np.concatenate(v) for k, v in self.cols.items()}
@@ -1174,19 +1201,29 @@ def brute_nn(dev, xs, mask, qv, k, res):
     return tie_aware(f, fp, ex[:len(fp)], td, tp, tol), tol / td[-1]
 
 
+def builder(table, query):
+    """A ``HybridQuery`` as the ``QueryBuilder`` a user writes for it on
+    ``table``."""
+    b = table.query()
+    if query.where is not None:
+        b.where(query.where)
+    return b.rank(*query.ranks, recall_target=query.recall_target) \
+        .limit(query.k)
+
+
 def tracy_store(dev, data: TracyData, rows: int, vector_index: str,
                 flush_rows: int = 2048, fanout: int = 4,
-                quantize: bool = True, shards: int = 0):
+                quantize: bool = True, shards: int = 1):
     """The TRACY tweet table (``benchmarks/tracy.py``'s schema at its
     published widths: 128-d embeddings with ``vector_index``, ZORDER
     points, INVERTED text, BTREE time and likes; by default flush_rows
-    2048, fanout 4, pq_m 8) filled with ``rows`` rows through ``put`` and
-    ``flush`` on ``dev``, in batches of at most ``flush_rows`` (as
-    ``tracy.build_store`` feeds it): one ``LSMStore``, or with ``shards``
-    a ``ShardRouter`` of that many.  Returns (store, ingest seconds)."""
+    2048, fanout 4, pq_m 8) as the default table of a ``Database`` on
+    ``dev`` (over ``shards`` shards), filled with ``rows`` rows through
+    ``Table.put`` and ``flush``, in batches of at most ``flush_rows`` (as
+    ``tracy.build_store`` feeds it).  Returns (database, ingest seconds)."""
     import torch
-    from repro_torch.core.lsm import LSMConfig, LSMStore
-    from repro_torch.core.shards import ShardRouter
+    from repro_torch.core.api import Database
+    from repro_torch.core.lsm import LSMConfig
     from repro_torch.core.types import Column, ColumnType, IndexKind, Schema
     schema = Schema([
         Column("embedding", ColumnType.VECTOR, dim=data.dim,
@@ -1198,35 +1235,35 @@ def tracy_store(dev, data: TracyData, rows: int, vector_index: str,
     cfg = LSMConfig(flush_rows=flush_rows, fanout=fanout, pq_m=8,
                     quantize_vectors=quantize)
     t0 = time.perf_counter()
-    store = ShardRouter(schema, cfg, n_shards=shards, device=dev) if shards \
-        else LSMStore(schema, cfg, device=dev)
+    db = Database(schema, cfg, shards=shards, device=dev)
+    table = db.table()
     done = 0
     while done < rows:
         n = min(2048, flush_rows, rows - done)
         pks, batch = data.batch(done, n)
-        store.put(pks, batch)
+        table.put(pks, batch)
         done += n
-    store.flush()
+    table.flush()
     torch.cuda.synchronize()
     data.finish()
-    return store, time.perf_counter() - t0
+    return db, time.perf_counter() - t0
 
 
 def main_path(dev, record):
     import torch
-    from repro_torch.core.executor import Executor
     dim, rows = 128, ROWS
     log(f"main path: TRACY tweet table, {rows} rows (paper: "
         f"{PAPER_ROWS}; cut to fit the run's time limit), dim={dim} "
         f"flush_rows=2048 fanout=4 pq_m=8 device={dev}")
     data = TracyData(dim)
     reset_counts()
-    store, ingest_s = tracy_store(dev, data, rows, "IVF")
+    db, ingest_s = tracy_store(dev, data, rows, "IVF")
+    table = db.table()
     ingest = counts()
     log(f"ingest: {ingest_s:.2f} s, segments "
-        f"{[s.n_rows for s in store.segments]}, launches {ingest}")
+        f"{[s.n_rows for s in table.store.segments]}, launches {ingest}")
 
-    ex = Executor(store)
+    ex = table.executor
     tmpl = templates(data)
     xs = {dim: torch.from_numpy(data.cols["embedding"]).to(dev, torch.float64),
           2: torch.from_numpy(data.cols["coordinate"]).to(dev, torch.float64)}
@@ -1234,11 +1271,14 @@ def main_path(dev, record):
     for name in ("t6", "t8", "t10", "t13", "t2", "t4"):
         before, probes = counts(), record.get("probes", 0)
         times, plan_desc, swaps, checked, power = [], "", 0, 0, []
-        for _ in range(BATCHES):
+        for b in range(BATCHES):
             made = [tmpl[name]() for _ in range(8)]
+            built = [builder(table, m[0]) for m in made]
+            if b == 0:
+                log(f"EXPLAIN {name}:\n{built[0].explain()}")
             record["template"] = name
             t1 = time.perf_counter()
-            out = ex.execute_many([m[0] for m in made])
+            out = db.execute_many(built)
             torch.cuda.synchronize()
             times.append((time.perf_counter() - t1) * 1e3)
             head = out[0][1].plan.splitlines()[0]     # the executed plan
@@ -1278,7 +1318,7 @@ def main_path(dev, record):
     log(f"main path launches (ingest + queries): {total}")
     log(f"brute-force check: every answer agrees, tie swaps "
         f"{swaps_total}")
-    return total, {"ex": ex, "tmpl": tmpl, "xs": xs}
+    return total, {"db": db, "ex": ex, "tmpl": tmpl, "xs": xs}
 
 
 def quantized_templates(tmpl, recall_target: float = RECALL_TARGET):
@@ -1313,9 +1353,12 @@ def survivors(dev, rerank, qi: int, n: int):
 
 def quantized_path(dev, record, ctx) -> dict:
     """g6, g8, g13 at recall_target 0.9 on the main path's store, 21
-    batches of 8 each through ``Executor.execute_many``."""
+    batches of 8 each as ``QueryBuilder``s through
+    ``Database.execute_many`` (g6 at refine 12 through the table's
+    ``Executor``, with its plans)."""
     import torch
-    ex, xs = ctx["ex"], ctx["xs"]
+    db, ex, xs = ctx["db"], ctx["ex"], ctx["xs"]
+    table = db.table()
     n = len(xs[128])
     gt = quantized_templates(ctx["tmpl"])
     ctx["gt"] = gt
@@ -1326,7 +1369,8 @@ def quantized_path(dev, record, ctx) -> dict:
         before it to just after it; the exact dispatch's comparison runs
         stay outside these windows."""
         reset_counts()
-        out = ex.execute_many(qs, plans=plans)
+        out = ex.execute_many(qs, plans=plans) if plans else \
+            db.execute_many([builder(table, x) for x in qs])
         torch.cuda.synchronize()
         add_counts(total)
         return out
@@ -1412,7 +1456,6 @@ def pqivf_path(dev) -> dict:
     ``IndexKind.PQIVF``, 20 t6- and 20 t8-shape queries through
     ``Executor.execute`` with a forced ``postfilter_nn`` plan."""
     import torch
-    from repro_torch.core.executor import Executor
     from repro_torch.core.optimizer.planner import Plan
     dim, rows = 128, PQIVF_ROWS
     log(f"IVF-PQ probe: TRACY tweet table with embedding PQIVF, {rows} rows "
@@ -1420,10 +1463,11 @@ def pqivf_path(dev) -> dict:
         f"run's time limit), dim={dim} flush_rows=2048 fanout=4 pq_m=8")
     data = TracyData(dim, seed=1)
     reset_counts()
-    store, ingest_s = tracy_store(dev, data, rows, "PQIVF")
+    db, ingest_s = tracy_store(dev, data, rows, "PQIVF")
+    table = db.table()
     log(f"IVF-PQ ingest: {ingest_s:.2f} s, segments "
-        f"{[s.n_rows for s in store.segments]}, launches {counts()}")
-    ex = Executor(store)
+        f"{[s.n_rows for s in table.store.segments]}, launches {counts()}")
+    ex = table.executor
     tmpl = templates(data)
     x64 = torch.from_numpy(data.cols["embedding"]).to(dev, torch.float64)
     for name in ("t6", "t8"):
@@ -1470,12 +1514,13 @@ def pqivf_path(dev) -> dict:
 
 
 def sharded_path(dev, record):
-    """The sharded store: a 4-shard ``ShardRouter`` of TRACY's shape
-    filled with SHARDED_ROWS rows, then t6, t8, t10, t13, t2 and t4
-    through ``ShardedExecutor.execute_many``, 21 batches of 8 each, every
-    answer held against the float64 brute force (NN) or numpy (filters)."""
+    """The sharded store: ``Database(shards=4)``, a 4-shard
+    ``ShardRouter`` of TRACY's shape filled with SHARDED_ROWS rows, then
+    t6, t8, t10, t13, t2 and t4 as ``QueryBuilder``s through
+    ``Database.execute_many`` (the table's ``ShardedExecutor``), 21
+    batches of 8 each, every answer held against the float64 brute force
+    (NN) or numpy (filters)."""
     import torch
-    from repro_torch.core.shards import ShardedExecutor
     dim, rows = 128, SHARDED_ROWS
     log(f"sharded path: TRACY tweet table over {N_SHARDS} shards, {rows} "
         f"rows (paper: {PAPER_ROWS}; cut for the run's time), dim={dim} "
@@ -1483,13 +1528,15 @@ def sharded_path(dev, record):
     data = TracyData(dim, seed=2)
     total = dict.fromkeys(counts(), 0)
     reset_counts()
-    router, ingest_s = tracy_store(dev, data, rows, "IVF", shards=N_SHARDS)
+    db, ingest_s = tracy_store(dev, data, rows, "IVF", shards=N_SHARDS)
+    table = db.table()
+    router = table.store
     ingest = add_counts(total)
     log(f"sharded ingest: {ingest_s:.2f} s, rows per shard "
         f"{router.shard_rows()}, segments per shard "
         f"{[[s.n_rows for s in sh.segments] for sh in router.shards]}, "
         f"launches {ingest}")
-    ex = ShardedExecutor(router)
+    ex = table.executor
     tmpl = templates(data)
     xs = {dim: torch.from_numpy(data.cols["embedding"]).to(dev, torch.float64),
           2: torch.from_numpy(data.cols["coordinate"]).to(dev, torch.float64)}
@@ -1499,10 +1546,11 @@ def sharded_path(dev, record):
         times, swaps, checked, head = [], 0, 0, ""
         for _ in range(BATCHES):
             made = [tmpl[name]() for _ in range(8)]
+            built = [builder(table, m[0]) for m in made]
             record["template"] = f"sharded {name}"
             reset_counts()
             t1 = time.perf_counter()
-            out = ex.execute_many([m[0] for m in made])
+            out = db.execute_many(built)
             torch.cuda.synchronize()
             times.append((time.perf_counter() - t1) * 1e3)
             c = add_counts(total)
@@ -1563,7 +1611,6 @@ def graph_path(dev, record):
     against the visited words' popcount; recall@10 against the exact
     dispatch and a widened beam (128, 12 hops) are printed."""
     import torch
-    from repro_torch.core.executor import Executor
     dim, rows = 128, GRAPH_ROWS
     log(f"graph path: TRACY tweet table with embedding GRAPH, {rows} rows "
         f"in {rows // GRAPH_FLUSH} segments (the size of the repo's graph "
@@ -1572,13 +1619,14 @@ def graph_path(dev, record):
     data = TracyData(dim, seed=3)
     total = dict.fromkeys(counts(), 0)
     reset_counts()
-    store, ingest_s = tracy_store(dev, data, rows, "GRAPH",
-                                  flush_rows=GRAPH_FLUSH, fanout=32,
-                                  quantize=False)
+    db, ingest_s = tracy_store(dev, data, rows, "GRAPH",
+                               flush_rows=GRAPH_FLUSH, fanout=32,
+                               quantize=False)
     ingest = add_counts(total)
     log(f"graph ingest: {ingest_s:.2f} s, segments "
-        f"{[s.n_rows for s in store.segments]}, launches {ingest}")
-    ex = Executor(store)
+        f"{[s.n_rows for s in db.table().store.segments]}, launches "
+        f"{ingest}")
+    ex = db.table().executor
     gt = quantized_templates(templates(data), GRAPH_RECALL)
     xs = {dim: torch.from_numpy(data.cols["embedding"]).to(dev, torch.float64)}
     n = rows
@@ -1663,6 +1711,363 @@ def graph_path(dev, record):
 
 
 # ---------------------------------------------------------------------------
+# the continuous phase: subscriptions through the facade under writes
+# ---------------------------------------------------------------------------
+
+class LiveRows:
+    """What a TRACY table holds under writes, pk-indexed (row i is pk i),
+    with room for ``capacity`` pks: the current embedding, point and time
+    of every pk written, which pks are live, and the embeddings and
+    points on ``dev`` in float64 for the brute force (``xs``, keyed by
+    width as ``brute_nn`` reads them)."""
+
+    def __init__(self, dev, cols, capacity: int):
+        import torch
+        n, d = cols["embedding"].shape
+        self.dev, self.n = dev, n
+        self.live = np.zeros(capacity, bool)
+        self.live[:n] = True
+        self.pts = np.zeros((capacity, 2), np.float32)
+        self.pts[:n] = cols["coordinate"]
+        self.time = np.zeros(capacity)
+        self.time[:n] = cols["time"]
+        self.xs = {w: torch.zeros((capacity, w), dtype=torch.float64,
+                                  device=dev) for w in (d, 2)}
+        self.xs[d][:n] = torch.from_numpy(cols["embedding"]).to(
+            dev, torch.float64)
+        self.xs[2][:n] = torch.from_numpy(cols["coordinate"]).to(
+            dev, torch.float64)
+
+    def write(self, pks, batch) -> None:
+        """A put of ``batch`` at ``pks`` (new rows or updates)."""
+        import torch
+        pks = np.asarray(pks, np.int64)
+        self.pts[pks] = batch["coordinate"]
+        self.time[pks] = batch["time"]
+        self.live[pks] = True
+        at = torch.from_numpy(pks).to(self.dev)
+        for w, col in ((batch["embedding"].shape[1], "embedding"),
+                       (2, "coordinate")):
+            self.xs[w][at] = torch.from_numpy(
+                np.asarray(batch[col], np.float32)).to(self.dev,
+                                                       torch.float64)
+        self.n = max(self.n, int(pks.max()) + 1)
+
+    def delete(self, pks) -> None:
+        self.live[np.asarray(pks, np.int64)] = False
+
+    def mask(self, expr) -> np.ndarray:
+        """Live rows passing ``expr`` (``And`` / ``Or`` of ``Range`` on
+        time and ``GeoWithin``; None passes every row), evaluated as the
+        executor does: time in float64, points against the rectangle in
+        float32."""
+        from repro_torch.core import query as q
+
+        def ev(e):
+            if e is None:
+                return np.ones(len(self.live), bool)
+            if isinstance(e, (q.And, q.Or)):
+                parts = [ev(c) for c in e.children]
+                return (np.logical_and if isinstance(e, q.And)
+                        else np.logical_or).reduce(parts)
+            if isinstance(e, q.Range) and e.col == "time":
+                return (self.time >= e.lo) & (self.time <= e.hi)
+            if isinstance(e, q.GeoWithin):
+                r = np.asarray(e.rect, np.float32)
+                p = self.pts
+                return ((p[:, 0] >= r[0]) & (p[:, 0] <= r[2])
+                        & (p[:, 1] >= r[1]) & (p[:, 1] <= r[3]))
+            raise SmokeFailure(f"the smoke does not mirror {e!r}")
+        return self.live & ev(expr)
+
+
+def continuous_mix(data: TracyData):
+    """The subscriptions of ``benchmarks/continuous_bench.py:20-31``: 12
+    SYNC at interval 1.0, vector NN (k 10 on the embedding) and
+    ``GeoWithin`` over ``rect(12)`` alternating; then two ASYNC: a t8-like
+    NN with a time range and a t2-like time range with a ``GeoWithin``.
+    Returns [(SYNC interval or None for ASYNC, query)]."""
+    from repro_torch.core import query as q
+    out = []
+    for i in range(12):
+        if i % 2 == 0:
+            out.append((1.0, q.HybridQuery(ranks=[q.VectorRank(
+                "embedding", data.query_vec(), 1.0)], k=10)))
+        else:
+            out.append((1.0, q.HybridQuery(
+                where=q.GeoWithin("coordinate", data.rect(12)))))
+    lo = float(data.rng.uniform(0, 800))
+    out.append((None, q.HybridQuery(
+        where=q.Range("time", lo, lo + 200),
+        ranks=[q.VectorRank("embedding", data.query_vec(), 1.0)], k=10)))
+    lo = float(data.rng.uniform(0, 900))
+    out.append((None, q.HybridQuery(where=q.And(
+        q.Range("time", lo, lo + 50),
+        q.GeoWithin("coordinate", data.rect(15))))))
+    return out
+
+
+def check_schedule(interval, ran: bool, wrote: bool) -> None:
+    """A SYNC subscription at interval 1.0 is due at every tick (the
+    ticks are 1.0 apart); an ASYNC one runs exactly when a write came
+    since its last run (``wrote``; true at the first tick, when it is
+    dirty from its registration)."""
+    if interval is not None:
+        check(ran, "a SYNC subscription due at this tick did not run")
+    else:
+        check(ran == wrote, f"an ASYNC subscription {'did not run' if wrote
+              else 'ran'} with{'' if wrote else 'out'} a write before")
+
+
+def check_cache_hits(mode: str, hits: int, n_sync: int, wrote: bool) -> None:
+    """The full-result cache's hits at one tick: in ``fcache`` mode a
+    tick with no write before it serves every SYNC subscription from the
+    cache (each ran at the tick before, and nothing invalidated it), and
+    a tick after a delete serves none (a delete empties the cache); the
+    other modes keep no cache."""
+    want = n_sync if mode == "fcache" and not wrote else 0
+    check(hits == want, f"{mode}: {hits} cache hits at a tick "
+          f"{'after a write' if wrote else 'with no write before it'}, "
+          f"{want} expected")
+
+
+def hold_subscription(dev, rows: LiveRows, query, res, fresh, rewrite=None):
+    """Hold one subscription's answer ``res`` at a tick against ``fresh``,
+    an ``execute`` of the same query on the same table at that tick, both
+    against the table's current rows: an NN answer tie-aware at the fp32
+    bound (``brute_nn``), a filter answer as an exact pk set.
+
+    ``rewrite`` is the view rewrite that answered (views mode, when a view
+    served the query), else None.  A view answers by the reference's own
+    rule (``core/views/rewrite.py``), held here exactly:
+
+    - a vector view: the exact top-k of the live rows passing the filter
+      among the view's 4 k candidates nearest the query by the vectors it
+      holds (``VectorNNView.topk_for``);
+    - a spatial view: the live rows passing the residual filter among the
+      view's pks whose held point lies in the rectangle
+      (``SpatialRangeView.pks_in``).  It may differ from the fresh answer
+      only in pks whose held point is not their current one (a row
+      updated out of the view's rectangle stays in it with its old point;
+      ROADMAP.md §3) or lies on the rectangle's edge (``pks_in`` compares
+      in float64, the executor in float32).
+
+    Returns (tie swaps, whether the answer's pks are the fresh answer's,
+    pks in one of the two and not the other)."""
+    from repro_torch.core import query as q
+    mask = rows.mask(query.where)
+    got, fresh_pks = [r.pk for r in res], [r.pk for r in fresh]
+    off = len(set(got) ^ set(fresh_pks))
+    if query.ranks:
+        qv = np.asarray(query.ranks[0].q, np.float32)
+        swaps = brute_nn(dev, rows.xs, mask, qv, query.k, fresh)[0]
+        adm = mask
+        if rewrite is not None:
+            cand = [pk for _, pk in rewrite.vector_view.topk_for(
+                qv, max(query.k * 4, query.k))]
+            adm = np.zeros_like(mask)
+            adm[np.asarray(cand, np.int64)] = True
+            adm &= mask
+            check(int(adm.sum()) >= query.k, f"a vector view answered "
+                  f"from {int(adm.sum())} live candidates, under k")
+        return (swaps + brute_nn(dev, rows.xs, adm, qv, query.k, res)[0],
+                got == fresh_pks, off)
+    want = set(np.nonzero(mask)[0].tolist())
+    check(set(fresh_pks) == want, f"a fresh execute differs from numpy "
+          f"({len(fresh_pks)} vs {len(want)} rows)")
+    if rewrite is None:
+        check(set(got) == want, f"a subscription's filter answer differs "
+              f"({len(got)} vs {len(want)} rows)")
+        return 0, True, 0
+    view, pred = rewrite.spatial_view, rewrite.spatial_pred
+    residual = [p for p in query.filters if p is not pred]
+    keep = rows.mask(q.And(residual) if residual else None)
+    expect = {pk for pk in view.pks_in(pred.rect) if keep[pk]}
+    check(set(got) == expect, f"a spatial view answered {len(got)} rows, "
+          f"its points name {len(expect)}")
+    r64, r32 = pred.rect, np.asarray(pred.rect, np.float32)
+    for pk in set(got) ^ want:
+        held = view.rows.get(pk)
+        x, y = (float(v) for v in rows.pts[pk])
+        edge = ((r64[0] <= x <= r64[2] and r64[1] <= y <= r64[3])
+                != bool(r32[0] <= x <= r32[2] and r32[1] <= y <= r32[3]))
+        check(held is not None and (held != (x, y) or edge),
+              f"pk {pk} is off the fresh answer with its current point "
+              f"{(x, y)} in the view")
+    return 0, set(got) == want, off
+
+
+def write_round(table, rows: LiveRows, data: TracyData, rng) -> None:
+    """The writes before a tick: CONT_PUT new rows, updates of
+    CONT_UPDATE live pks and deletes of CONT_DELETE, each through the
+    facade and into ``rows``."""
+    new = np.arange(rows.n, rows.n + CONT_PUT)
+    batch = data.draw(CONT_PUT)[0]
+    table.put(new, batch)
+    rows.write(new, batch)
+    upd = rng.choice(np.nonzero(rows.live)[0], CONT_UPDATE, replace=False)
+    batch = data.draw(CONT_UPDATE)[0]
+    table.put(upd, batch)
+    rows.write(upd, batch)
+    gone = rng.choice(np.nonzero(rows.live)[0], CONT_DELETE, replace=False)
+    table.delete(gone)
+    rows.delete(gone)
+
+
+def run_subscriptions(dev, record, db, table, rows, data, mix, ticks,
+                      what):
+    """Subscribe ``mix`` on ``table`` through the facade, then ``ticks``
+    ticks of ``db.advance`` 1.0 apart: writes before every tick but the
+    first and the last, so the last tick has no write before it.  At
+    every tick every answer is held (``hold_subscription``; an ASYNC
+    subscription that did not run by its last answer) and the schedule
+    (``check_schedule``) and the full-result cache's hits
+    (``check_cache_hits``) are checked.  The launch counts of the
+    registrations, the writes and the advances are added up from 0, the
+    checks' launches left out (and out of the recorder's counts).
+    Returns (launches, advance ms per tick, a tally of the answers: held,
+    tie swaps, pks off the fresh answers, and by query kind those a view
+    served and how many of them had the fresh answer's pks)."""
+    import torch
+    rng = np.random.default_rng(len(what))
+    total = dict.fromkeys(counts(), 0)
+    reset_counts()
+    t0 = time.perf_counter()
+    subs = [(interval, builder(table, qq).subscribe(interval_s=interval)
+             if interval is not None else
+             builder(table, qq).subscribe(on_change=True))
+            for interval, qq in mix]
+    torch.cuda.synchronize()
+    add_counts(total)
+    log(f"{what}: {len(subs)} subscriptions registered in "
+        f"{(time.perf_counter() - t0) * 1e3:.3f} ms")
+    engine = table.engine
+    n_sync = sum(interval is not None for interval, _ in mix)
+    by_view = {}        # rid -> the rewrite that served its last answer
+    adv = []
+    tally = dict.fromkeys(("held", "swaps", "off", "nn by view",
+                           "nn by view as fresh", "geo by view",
+                           "geo by view as fresh"), 0)
+    for tick in range(ticks):
+        wrote = tick < ticks - 1
+        if 0 < tick < ticks - 1:
+            reset_counts()
+            write_round(table, rows, data, rng)
+            torch.cuda.synchronize()
+            add_counts(total)
+        hits = {s.rid: engine.registered[s.rid].view_hits for _, s in subs}
+        cached = engine.metrics.get("cache_hits", 0)
+        reset_counts()
+        t1 = time.perf_counter()
+        out = db.advance(float(tick))[table.name]
+        torch.cuda.synchronize()
+        adv.append((time.perf_counter() - t1) * 1e3)
+        add_counts(total)
+        record["checking"] = True
+        check_cache_hits(engine.mode,
+                         engine.metrics.get("cache_hits", 0) - cached,
+                         n_sync, wrote)
+        for interval, sub in subs:
+            # a write (or, at the first tick, the registration) came
+            # before every tick but the last
+            ran = sub.rid in out
+            check_schedule(interval, ran, wrote)
+            reg = engine.registered[sub.rid]
+            if ran:
+                by_view[sub.rid] = reg.rewrite \
+                    if reg.view_hits > hits[sub.rid] else None
+            fresh, _ = table.execute(sub.decl.query)
+            sw, same, off = hold_subscription(
+                dev, rows, sub.decl.query,
+                out[sub.rid] if ran else reg.last_result, fresh,
+                by_view[sub.rid])
+            tally["held"] += 1
+            tally["swaps"] += sw
+            tally["off"] += off
+            if ran and by_view[sub.rid] is not None:
+                kind = "nn" if sub.decl.query.ranks else "geo"
+                tally[f"{kind} by view"] += 1
+                tally[f"{kind} by view as fresh"] += same
+        record["checking"] = False
+    for _, sub in subs:
+        sub.cancel()
+    return total, adv, tally
+
+
+def continuous_path(dev, record):
+    """Continuous queries through the facade: a TRACY table of CONT_ROWS
+    rows at the main store's widths and config (its own: the phase
+    writes), the subscriptions of ``continuous_mix`` for CONT_TICKS ticks
+    in each of the modes none, fcache and views, each mode a
+    ``Database(continuous_mode=...)`` that adopts the table; then
+    ``ShardedContinuousEngine`` on a 4-shard table of CONT_ROWS rows of
+    its own (so the sharded path's table keeps the rows its batches and
+    the busy share read) for SHARDED_CONT_TICKS ticks with the same
+    writes."""
+    from repro_torch.core.api import Database
+    dim, t0 = 128, time.perf_counter()
+    log(f"continuous path: TRACY tweet table, {CONT_ROWS} rows, dim={dim} "
+        f"flush_rows=2048 fanout=4 pq_m=8, view budget {VIEW_BUDGET} bytes; "
+        f"{CONT_TICKS} ticks a mode, before every tick but the first and "
+        f"the last a put of {CONT_PUT} new rows, updates of {CONT_UPDATE} "
+        f"pks and deletes of {CONT_DELETE}")
+    data = TracyData(dim, seed=4)
+    total = dict.fromkeys(counts(), 0)
+    reset_counts()
+    base, ingest_s = tracy_store(dev, data, CONT_ROWS, "IVF")
+    table = base.table()
+    add_counts(total)
+    log(f"continuous ingest: {ingest_s:.2f} s, segments "
+        f"{[s.n_rows for s in table.store.segments]}")
+    rows = LiveRows(dev, data.cols, CONT_ROWS + len(CONT_MODES)
+                    * (CONT_TICKS - 2) * CONT_PUT)
+    record["template"] = None
+    for mode in CONT_MODES:
+        t1 = time.perf_counter()
+        db = Database(continuous_mode=mode, view_budget_bytes=VIEW_BUDGET,
+                      device=dev)
+        t = db.adopt_store("tweets", table.store)
+        c, adv, tally = run_subscriptions(
+            dev, record, db, t, rows, data, continuous_mix(data),
+            CONT_TICKS, f"continuous {mode}")
+        for k, v in c.items():
+            total[k] += v
+        m = t.engine.metrics
+        log(f"continuous {mode}: first advance {adv[0]:.3f} ms, p50 "
+            f"advance after writes {np.median(adv[1:-1]):.3f} ms (ticks "
+            f"2-{CONT_TICKS - 1}), advance with no write before it "
+            f"{adv[-1]:.3f} ms; executions {m['executions']}, view_hits "
+            f"{m['view_hits']}, cache_hits {m['cache_hits']}; launches {c}; "
+            f"answers held against a fresh execute and the float64 brute "
+            f"force: {tally}; {time.perf_counter() - t1:.1f} s in all")
+    t1 = time.perf_counter()
+    sdata = TracyData(dim, seed=5)
+    sharded_total = dict.fromkeys(counts(), 0)
+    reset_counts()
+    sdb, ingest_s = tracy_store(dev, sdata, CONT_ROWS, "IVF",
+                                shards=N_SHARDS)
+    add_counts(sharded_total)
+    srows = LiveRows(dev, sdata.cols, CONT_ROWS
+                     + (SHARDED_CONT_TICKS - 2) * CONT_PUT)
+    st = sdb.table()
+    c, adv, tally = run_subscriptions(
+        dev, record, sdb, st, srows, sdata, continuous_mix(sdata),
+        SHARDED_CONT_TICKS, "sharded continuous")
+    for k, v in c.items():
+        sharded_total[k] += v
+    m = st.engine.metrics
+    log(f"sharded continuous ({type(st.engine).__name__}, {st.n_shards} "
+        f"shards, {st.n_rows} rows; ingest {ingest_s:.2f} s): first advance "
+        f"{adv[0]:.3f} ms, p50 advance after writes "
+        f"{np.median(adv[1:-1]):.3f} ms, advance with no write before it "
+        f"{adv[-1]:.3f} ms; executions {m['executions']}, delta batches "
+        f"{m['delta_batches']}; launches {c}; answers held: {tally}; "
+        f"{time.perf_counter() - t1:.1f} s in all")
+    log(f"continuous path: {time.perf_counter() - t0:.1f} s in all")
+    return total, sharded_total
+
+
+# ---------------------------------------------------------------------------
 # phase 3: kernels on the main path's inputs
 # ---------------------------------------------------------------------------
 
@@ -1678,7 +2083,8 @@ def install_recorder(record):
     shape of the list entry point, whose shapes differ from call to call,
     is kept with its output and held by ``hold_pending`` after the timed
     batches (``hold_list``).  A ``template`` of None records no scan
-    inputs."""
+    inputs; calls made while ``checking`` is set (the continuous phase's
+    fresh executes) are held but not counted."""
     from repro_torch.kernels import (bitmap_filter, fused_scan, graph_search,
                                      ivf_scan, pq_adc, quantized_scan,
                                      topk_merge)
@@ -1707,7 +2113,7 @@ def install_recorder(record):
 
         def rec(x, y):
             key = tuple(x.shape) + tuple(y.shape)
-            counts[key] = counts.get(key, 0) + 1
+            counts[key] = counts.get(key, 0) + (not record.get("checking"))
             # inputs to time: of the first 64 shapes, and of 16 more
             # single-query ivf_scan shapes (the probes' launches come late)
             held = len(record[kind])
@@ -2292,7 +2698,8 @@ def card_line() -> str:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phase", default="all",
-                    choices=("all", "kernels", "main", "sharded", "graph"))
+                    choices=("all", "kernels", "main", "sharded", "graph",
+                             "continuous"))
     args = ap.parse_args()
     if not (HERE / "src" / "repro_torch" / "kernels" / "csrc").is_dir():
         print("chip_smoke.py: src/repro_torch not found beside this script;"
@@ -2331,8 +2738,8 @@ def main() -> int:
         record = {}
         orig = install_recorder(record)
         install_probe_counter(record)
-        run = ("main", "sharded", "graph") if args.phase == "all" \
-            else (args.phase,)
+        run = ("main", "sharded", "graph", "continuous") \
+            if args.phase == "all" else (args.phase,)
         paths, ctx = {}, {}
         if "main" in run:
             paths["main"], ctx["main"] = main_path(dev, record)
@@ -2342,6 +2749,9 @@ def main() -> int:
             paths["sharded"], ctx["sharded"] = sharded_path(dev, record)
         if "graph" in run:
             paths["graph"], ctx["graph"] = graph_path(dev, record)
+        if "continuous" in run:
+            paths["continuous"], paths["sharded continuous"] = \
+                continuous_path(dev, record)
         for path, must in (("main", ("fused_scan_topk", "ivf_scan",
                                      "bitmap_filter")),
                            ("quantized", ("quantized_scan_topk",
@@ -2351,7 +2761,10 @@ def main() -> int:
                                         "fused_scan_topk", "ivf_scan",
                                         "bitmap_filter")),
                            ("graph", ("graph_search_topk",
-                                      "fused_scan_topk"))):
+                                      "fused_scan_topk")),
+                           ("continuous", ("ivf_scan", "bitmap_filter")),
+                           ("sharded continuous", ("batched_topk_merge",
+                                                   "ivf_scan"))):
             if path not in paths:
                 continue
             log(f"{path} path launches: {paths[path]}; "

@@ -54,6 +54,10 @@ class LSMConfig:
     path: Optional[str] = None
 
 
+# what every durable entry point of the port raises with
+NO_DURABILITY = "durability is not ported yet (ROADMAP queue 1, item 6)"
+
+
 class LSMStore:
     def __init__(self, schema: Schema, cfg: Optional[LSMConfig] = None,
                  index_factory: Optional[Callable[[Column], Any]] = None,
@@ -64,9 +68,8 @@ class LSMStore:
         self.schema = schema
         self.cfg = cfg or LSMConfig()
         if self.cfg.path:
-            raise NotImplementedError(
-                "LSMConfig(path=...): durability is not ported yet "
-                "(ROADMAP queue 1, item 6)")
+            raise NotImplementedError(f"LSMConfig(path=...): "
+                                      f"{NO_DURABILITY}")
         self.device = resolve_device(device)
         self._memtable_factory = memtable_factory or mt.MemTable
         self.memtable = self._memtable_factory(schema)

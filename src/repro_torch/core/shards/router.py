@@ -26,11 +26,9 @@ from typing import Any, Callable, Dict, Iterator, List, Optional, Sequence, Tupl
 import numpy as np
 
 from repro_torch.core import memtable as mt
-from repro_torch.core.lsm import LSMConfig, LSMStore
+from repro_torch.core.lsm import NO_DURABILITY, LSMConfig, LSMStore
 from repro_torch.core.types import Schema
 from repro_torch.kernels.ops import Device, resolve_device
-
-_NO_DURABILITY = "durability is not ported yet (ROADMAP queue 1, item 6)"
 
 _MIX1 = np.uint64(0xBF58476D1CE4E5B9)
 _MIX2 = np.uint64(0x94D049BB133111EB)
@@ -67,7 +65,7 @@ class ShardRouter:
         self.cfg = cfg or LSMConfig()
         if self.cfg.path:
             raise NotImplementedError(f"LSMConfig(path=...): "
-                                      f"{_NO_DURABILITY}")
+                                      f"{NO_DURABILITY}")
         self.n_shards = int(n_shards)
         self.device = resolve_device(device)
         self.shards: List[LSMStore] = [
@@ -153,10 +151,10 @@ class ShardRouter:
 
     # --------------------------------------------------------- durability
     def set_faults(self, faults, shard: int = 0) -> None:
-        raise NotImplementedError(f"set_faults: {_NO_DURABILITY}")
+        raise NotImplementedError(f"set_faults: {NO_DURABILITY}")
 
     def durable_seqnos(self) -> List[int]:
-        raise NotImplementedError(f"durable_seqnos: {_NO_DURABILITY}")
+        raise NotImplementedError(f"durable_seqnos: {NO_DURABILITY}")
 
     def close(self) -> None:
         """Close every shard (idempotent): stop background workers."""
@@ -164,7 +162,7 @@ class ShardRouter:
             sh.close()
 
     def snapshot(self, path: str) -> None:
-        raise NotImplementedError(f"snapshot: {_NO_DURABILITY}")
+        raise NotImplementedError(f"snapshot: {NO_DURABILITY}")
 
     # --------------------------------------------------------------- read
     def get(self, key: int) -> Optional[Dict[str, Any]]:

@@ -47,6 +47,7 @@ def test_port_sources_import_no_jax_and_no_reference():
 def test_importing_the_slice_loads_no_jax_or_reference():
     code = ("import sys\n"
             "import repro_torch.core.executor, repro_torch.core.lsm\n"
+            "import repro_torch.core.api, repro_torch.core.manifest\n"
             "import repro_torch.core.nra, repro_torch.convert\n"
             "import repro_torch.core.shards, repro_torch.core.index.graph\n"
             "import repro_torch.analysis.plan_validator\n"
@@ -67,6 +68,7 @@ def _no_card(monkeypatch):
 
 
 def test_store_raises_without_a_card(monkeypatch):
+    from repro_torch.core.api import Database
     from repro_torch.core.shards import ShardRouter
     _no_card(monkeypatch)
     schema = Schema([Column("v", ColumnType.VECTOR, dim=4,
@@ -78,6 +80,11 @@ def test_store_raises_without_a_card(monkeypatch):
     assert LSMStore(schema, device="cpu").device.type == "cpu"
     router = ShardRouter(schema, n_shards=2, device="cpu")
     assert {sh.device.type for sh in router.shards} == {"cpu"}
+    for shards in (1, 2):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            Database(schema, shards=shards)
+        db = Database(schema, shards=shards, device="cpu")
+        assert db.table().store.device.type == "cpu"
 
 
 def test_ops_raise_without_a_card(monkeypatch):
@@ -105,9 +112,11 @@ def test_ops_raise_without_a_card(monkeypatch):
 
 
 def test_unported_paths_raise():
-    """Durability is not ported: a store or a router given a path, and the
-    router's snapshot, fault arming and acknowledgement frontiers, raise
-    and name the ROADMAP item.  (``IndexKind.GRAPH`` builds now.)"""
+    """Durability is not ported: a store or a router given a path, the
+    router's snapshot, fault arming and acknowledgement frontiers, and the
+    facade's ``Database(path=...)``, ``snapshot`` and ``restore`` raise and
+    name the ROADMAP item.  (``IndexKind.GRAPH`` builds now.)"""
+    from repro_torch.core.api import Database
     from repro_torch.core.index import GraphIndex, default_index_factory
     from repro_torch.core.lsm import LSMConfig
     from repro_torch.core.shards import ShardRouter
@@ -119,9 +128,14 @@ def test_unported_paths_raise():
     with pytest.raises(NotImplementedError, match="item 6"):
         ShardRouter(schema, LSMConfig(path="somewhere"), device="cpu")
     router = ShardRouter(schema, device="cpu")
+    db = Database(schema, device="cpu")
     for call in (lambda: router.snapshot("somewhere"),
                  lambda: router.set_faults(None),
-                 router.durable_seqnos):
+                 router.durable_seqnos,
+                 lambda: Database(schema, path="somewhere", device="cpu"),
+                 lambda: Database(path="somewhere"),
+                 lambda: Database.restore("somewhere"),
+                 lambda: db.snapshot("somewhere")):
         with pytest.raises(NotImplementedError, match="item 6"):
             call()
 

@@ -105,8 +105,11 @@ def assert_same(r_out, p_out):
             [(r.pk, r.score) for r in r_rows]
         for a, b in zip(p_rows, r_rows):
             assert sorted(a.values) == sorted(b.values)
-            for key in a.values:
-                np.testing.assert_array_equal(a.values[key], b.values[key])
+        for key in (p_rows[0].values if p_rows else ()):
+            # one comparison a column: the rows' values stacked
+            np.testing.assert_array_equal(
+                np.asarray([a.values[key] for a in p_rows]),
+                np.asarray([b.values[key] for b in r_rows]))
         assert dataclasses.asdict(p_st) == dataclasses.asdict(r_st)
 
 

@@ -832,3 +832,257 @@ def test_bitmap_row_reports_both_entry_points(monkeypatch):
     record["blocks_calls"][(1, 2, 1, 1)] = 1       # a shape never held
     with pytest.raises(cs.SmokeFailure, match="not held"):
         cs.measure_bitmap(record, orig, launches, {})
+
+
+# ---------------------------------------------------------------------------
+# the continuous phase's checks
+# ---------------------------------------------------------------------------
+
+def _rows(n=1500, dim=16, seed=6):
+    """A ``LiveRows`` mirror of n TRACY rows on the CPU, and the data."""
+    data = cs.TracyData(dim, seed=seed)
+    data.batch(0, n)
+    data.finish()
+    return cs.LiveRows(torch.device("cpu"), data.cols, n + 64), data
+
+
+def _answer(pks, scores=None):
+    return [types.SimpleNamespace(pk=int(p), score=float(s))
+            for p, s in zip(pks, scores if scores is not None
+                            else np.zeros(len(pks)))]
+
+
+def _nn(rows, qv, k=10, adm=None):
+    """The exact top-k as the executor reports it: fp32 d2, sqrt."""
+    x = rows.xs[len(qv)].numpy().astype(np.float32)
+    d2 = ((x - qv) ** 2).sum(axis=1, dtype=np.float32)
+    ok = rows.live.copy() if adm is None else adm.copy()
+    d2 = np.where(ok, d2, np.inf)
+    top = np.lexsort((np.arange(len(d2)), d2))[:k]
+    return _answer(top, np.sqrt(d2[top]))
+
+
+def test_continuous_nn_check_passes_the_exact_answer_only():
+    rows, data = _rows()
+    qv = data.query_vec()
+    query = cs.continuous_mix(data)[0][1]
+    query.ranks[0] = type(query.ranks[0])("embedding", qv, 1.0)
+    right = _nn(rows, qv)
+    assert cs.hold_subscription("cpu", rows, query, right, right)[1:] == \
+        (True, 0)
+    dropped = right[:3] + right[4:] + _nn(rows, qv, k=11)[10:]
+    with pytest.raises(cs.SmokeFailure):
+        cs.hold_subscription("cpu", rows, query, dropped, right)
+    # after a delete the deleted row may not answer; after an update the
+    # row's new vector counts
+    rows.delete([right[0].pk])
+    with pytest.raises(cs.SmokeFailure):
+        cs.hold_subscription("cpu", rows, query, right, right)
+    far = {"embedding": np.full((1, 16), 50, np.float32),
+           "coordinate": np.zeros((1, 2), np.float32),
+           "time": np.zeros(1)}
+    rows.write([right[1].pk], far)
+    fresh = _nn(rows, qv)
+    assert right[1].pk not in {r.pk for r in fresh}
+    cs.hold_subscription("cpu", rows, query, fresh, fresh)
+    with pytest.raises(cs.SmokeFailure):
+        cs.hold_subscription("cpu", rows, query, fresh, right)
+
+
+def test_continuous_filter_check_wants_the_exact_pk_set():
+    from repro_torch.core import query as q
+    rows, data = _rows()
+    query = q.HybridQuery(where=q.And(q.Range("time", 100, 600),
+                                      q.GeoWithin("coordinate",
+                                                  (10, 10, 60, 60))))
+    want = np.nonzero(rows.mask(query.where))[0]
+    t, p = rows.time, rows.pts
+    assert len(want) == int(((t >= 100) & (t <= 600) & (p[:, 0] >= 10)
+                             & (p[:, 0] <= 60) & (p[:, 1] >= 10)
+                             & (p[:, 1] <= 60) & rows.live).sum()) > 0
+    right = _answer(want)
+    assert cs.hold_subscription("cpu", rows, query, right, right) == \
+        (0, True, 0)
+    for wrong in (right[1:], right + _answer([1_500])):
+        with pytest.raises(cs.SmokeFailure, match="differs"):
+            cs.hold_subscription("cpu", rows, query, wrong, right)
+        with pytest.raises(cs.SmokeFailure, match="fresh execute"):
+            cs.hold_subscription("cpu", rows, query, right, wrong)
+    rows.delete([int(want[0])])
+    with pytest.raises(cs.SmokeFailure):
+        cs.hold_subscription("cpu", rows, query, right, right)
+
+
+def test_continuous_views_are_held_to_the_references_rule():
+    """A spatial view's answer: its pks whose held point lies in the rect,
+    live and passing the residual; it may miss the fresh answer only at
+    pks whose held point is stale.  A vector view's: the exact top-k over
+    its candidates."""
+    from repro_torch.core import query as q
+    from repro_torch.core.views.rewrite import Rewrite
+    from repro_torch.core.views.view import SpatialRangeView, VectorNNView
+    rows, data = _rows()
+    rect = (20.0, 20.0, 50.0, 50.0)
+    pred = q.GeoWithin("coordinate", rect)
+    query = q.HybridQuery(where=q.And(q.Range("time", 0, 700), pred))
+    view = SpatialRangeView("coordinate", (10, 10, 60, 60))
+    inside = rows.mask(q.GeoWithin("coordinate", view.rect))
+    view.insert_many(np.nonzero(inside)[0], rows.pts[inside])
+    rw = Rewrite(spatial_view=view, spatial_pred=pred)
+    want = set(np.nonzero(rows.mask(query.where))[0].tolist())
+    # a row updated out of the rect: stale in the view, kept by it
+    moved = sorted(want)[0]
+    rows.write([moved], {"embedding": np.zeros((1, 16), np.float32),
+                         "coordinate": np.asarray([[90, 90]], np.float32),
+                         "time": np.asarray([5.0])})
+    fresh = _answer(sorted(want - {moved}))
+    by_view = _answer(sorted(want))
+    assert cs.hold_subscription("cpu", rows, query, by_view, fresh, rw) == \
+        (0, False, 1)
+    with pytest.raises(cs.SmokeFailure, match="its points name"):
+        cs.hold_subscription("cpu", rows, query, fresh, fresh, rw)
+    # a view that lacks a row whose current point is in the rect
+    lost = sorted(want)[1]
+    del view.rows[lost]
+    short = [r for r in by_view if r.pk != lost]
+    with pytest.raises(cs.SmokeFailure, match="current point"):
+        cs.hold_subscription("cpu", rows, query, short, fresh, rw)
+    # a vector view that lacks the query's true nearest row
+    qv = data.query_vec()
+    nn = q.HybridQuery(ranks=[q.VectorRank("embedding", qv, 1.0)], k=10)
+    exact = _nn(rows, qv)
+    vview = VectorNNView("embedding", qv, 80, 1.0)
+    x = rows.xs[16].numpy().astype(np.float32)
+    keep = rows.live.copy()
+    keep[exact[0].pk] = False
+    vview.insert_many(np.nonzero(keep)[0], x[keep])
+    cand = [pk for _, pk in vview.topk_for(qv, 40)]
+    adm = np.zeros_like(rows.live)
+    adm[cand] = True
+    served = _nn(rows, qv, adm=adm & rows.live)
+    vrw = Rewrite(vector_view=vview, vector_rank=nn.ranks[0])
+    assert cs.hold_subscription("cpu", rows, nn, served, exact, vrw)[1] \
+        is False
+    with pytest.raises(cs.SmokeFailure):
+        cs.hold_subscription("cpu", rows, nn, exact, exact, vrw)
+    with pytest.raises(cs.SmokeFailure):
+        cs.hold_subscription("cpu", rows, nn, served, exact)
+
+
+def test_continuous_schedule_check():
+    cs.check_schedule(1.0, True, True)
+    cs.check_schedule(1.0, True, False)
+    cs.check_schedule(None, True, True)
+    cs.check_schedule(None, False, False)
+    with pytest.raises(cs.SmokeFailure, match="SYNC"):
+        cs.check_schedule(1.0, False, True)
+    with pytest.raises(cs.SmokeFailure, match="ran without"):
+        cs.check_schedule(None, True, False)
+    with pytest.raises(cs.SmokeFailure, match="did not run"):
+        cs.check_schedule(None, False, True)
+
+
+def test_continuous_mix_is_the_benchmarks():
+    _, data = _rows(n=10)
+    mix = cs.continuous_mix(data)
+    assert [i for i, _ in mix] == [1.0] * 12 + [None, None]
+    assert [bool(x.ranks) for _, x in mix[:12]] == [True, False] * 6
+    assert all(x.k == 10 for _, x in mix[:12:2])
+    rects = [x.where.rect for _, x in mix[1:12:2]]
+    assert all(abs(r[2] - r[0] - 12) < 1e-9 for r in rects)
+    assert mix[12][1].ranks and mix[12][1].where.col == "time"
+    t2 = mix[13][1].where.children
+    assert t2[0].col == "time" and abs(t2[1].rect[2] - t2[1].rect[0]
+                                       - 15) < 1e-9
+
+
+def test_write_round_keeps_the_mirror_equal_to_the_table(monkeypatch):
+    """A round of writes through a port table on the CPU leaves the
+    mirror's live rows and points equal to what the table answers."""
+    from repro_torch.core import query as q
+    from repro_torch.core.api import Database
+    from repro_torch.core.lsm import LSMConfig
+    from repro_torch.core.types import Column, ColumnType, IndexKind, Schema
+    monkeypatch.setattr(cs, "CONT_PUT", 300)
+    monkeypatch.setattr(cs, "CONT_UPDATE", 40)
+    monkeypatch.setattr(cs, "CONT_DELETE", 20)
+    data = cs.TracyData(16, seed=7)
+    db = Database(Schema([
+        Column("embedding", ColumnType.VECTOR, dim=16, index=IndexKind.IVF),
+        Column("coordinate", ColumnType.SPATIAL, index=IndexKind.ZORDER),
+        Column("content", ColumnType.TEXT, index=IndexKind.INVERTED),
+        Column("time", ColumnType.SCALAR, index=IndexKind.BTREE),
+        Column("likes", ColumnType.SCALAR, index=IndexKind.BTREE)]),
+        LSMConfig(flush_rows=512), device="cpu")
+    t = db.table()
+    t.put(*data.batch(0, 1000))
+    t.flush()
+    data.finish()
+    rows = cs.LiveRows(torch.device("cpu"), data.cols, 1000 + 2 * 300)
+    rng = np.random.default_rng(0)
+    for _ in range(2):
+        cs.write_round(t, rows, data, rng)
+    assert rows.n == 1600 and int(rows.live.sum()) == 1600 - 40
+    where = q.GeoWithin("coordinate", (0, 0, 100, 100))
+    got = {r.pk: r.values["coordinate"] for r in
+           t.query().where(where).all()}
+    assert set(got) == set(np.nonzero(rows.mask(where))[0].tolist())
+    for pk, pt in got.items():
+        np.testing.assert_array_equal(pt, rows.pts[pk])
+        np.testing.assert_array_equal(
+            t.get(pk)["embedding"], rows.xs[16][pk].numpy().astype(
+                np.float32))
+
+
+def test_continuous_cache_hit_check():
+    cs.check_cache_hits("fcache", 12, 12, False)
+    cs.check_cache_hits("fcache", 0, 12, True)
+    cs.check_cache_hits("none", 0, 12, False)
+    cs.check_cache_hits("views", 0, 12, True)
+    with pytest.raises(cs.SmokeFailure, match="no write before it"):
+        cs.check_cache_hits("fcache", 11, 12, False)
+    with pytest.raises(cs.SmokeFailure, match="after a write"):
+        cs.check_cache_hits("fcache", 3, 12, True)
+    with pytest.raises(cs.SmokeFailure, match="none: 1 cache hits"):
+        cs.check_cache_hits("none", 1, 12, False)
+
+
+@pytest.mark.parametrize("mode", ["none", "fcache"])
+def test_schedule_and_cache_checks_pass_a_port_engine(monkeypatch, mode):
+    """The smoke's tick structure on a port table on the CPU: the first
+    tick, one after a round of writes, one with no write before it.  The
+    engine's own runs and cache hits pass ``check_schedule`` and
+    ``check_cache_hits`` at every tick."""
+    from repro_torch.core.api import Database
+    from repro_torch.core.lsm import LSMConfig
+    from repro_torch.core.types import Column, ColumnType, IndexKind, Schema
+    monkeypatch.setattr(cs, "CONT_PUT", 200)
+    monkeypatch.setattr(cs, "CONT_UPDATE", 30)
+    monkeypatch.setattr(cs, "CONT_DELETE", 10)
+    data = cs.TracyData(16, seed=8)
+    db = Database(Schema([
+        Column("embedding", ColumnType.VECTOR, dim=16, index=IndexKind.IVF),
+        Column("coordinate", ColumnType.SPATIAL, index=IndexKind.ZORDER),
+        Column("content", ColumnType.TEXT, index=IndexKind.INVERTED),
+        Column("time", ColumnType.SCALAR, index=IndexKind.BTREE),
+        Column("likes", ColumnType.SCALAR, index=IndexKind.BTREE)]),
+        LSMConfig(flush_rows=512), continuous_mode=mode, device="cpu")
+    t = db.table()
+    t.put(*data.batch(0, 800))
+    t.flush()
+    data.finish()
+    rows = cs.LiveRows(torch.device("cpu"), data.cols, 800 + 200)
+    mix = cs.continuous_mix(data)
+    subs = [(i, cs.builder(t, x).subscribe(interval_s=i) if i is not None
+             else cs.builder(t, x).subscribe(on_change=True))
+            for i, x in mix]
+    rng = np.random.default_rng(0)
+    for tick, wrote in enumerate((True, True, False)):
+        if tick == 1:
+            cs.write_round(t, rows, data, rng)
+        cached = t.engine.metrics["cache_hits"]
+        out = db.advance(float(tick))[t.name]
+        cs.check_cache_hits(mode, t.engine.metrics["cache_hits"] - cached,
+                            12, wrote)
+        for interval, sub in subs:
+            cs.check_schedule(interval, sub.rid in out, wrote)
